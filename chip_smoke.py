@@ -18,18 +18,52 @@ fails. Phases, one line each:
    same frames tracked on the CPU must give the same relative poses.
 5. Timing after warm-up: frames/s of the median of 10 chunks (CUDA
    events), the device's busy time and launches in one profiled chunk, and
-   each kernel against its plain version, in device time (profiler) and in
-   wall time per call (CUDA events).
+   each kernel against its plain version, in device time (profiler; CUDA
+   events where a profile, taken up to three times, records no kernel) and
+   in wall time per call (CUDA events).
+3b. The live path's kernel shapes at B = 1: K1 on each level of one frame
+   (480 x 640, 240 x 320, 120 x 160), K2 with C = 3 (intensity and both
+   gradients, FC) at levels 1 and 0, and K3 with C = 1 at the descriptor
+   shape (768 keypoints x 64 taps per level), each against its plain
+   version (K2 and K3 with equal masks).
+6. The live path (configuration 1): the same 96 frames through
+   `SlamSystem.process_frame` (FC, 3 levels, track levels (1, 0), 10 LM
+   iterations, 2048 points, keyframes, relocalization on). Every frame must
+   be ok, ATE <= 2 mm, every kernel launched; the port's CPU run of the
+   first 50 frames must give the same poses (1e-3 on se3.log) and the same
+   keyframes.
+7. Relocalization: the same run with frame 50 replaced by uniform noise
+   (numpy seed 0): frame 50 lost, frame 51 relocalized, ATE <= 4 mm over
+   the other 95 frames. The port's CPU run of these 96 frames (whose first
+   50 serve phase 6) must give the same statuses, keyframes and poses,
+   the relocalized one included (1e-3 on se3.log): CPU and card draw the
+   same RANSAC samples.
+8. The CLI: the first 32 frames as 8-bit PGM files with TUM timestamps,
+   ground truth and a calibration XML in a temporary directory, through
+   `uwslam_tpu_torch.cli.main.main` live and with `--offline`; both must
+   exit 0 and print an ATE <= 2 cm (8-bit quantization alone moves the JAX
+   package's CPU run of these 32 frames from 0.28 mm to 11.2 mm).
+9. Live timing: frames/s and per-frame latency (median, p90; CUDA events
+   in phase 6's run) after 15 warm-up frames, and device busy ms, idle
+   share, kernel launches and the costliest operators per frame from the
+   profiler over 5 frames.
 
-Then a JSON line of per-kernel results, the card's name and power limit,
-and, last, `{"ok": true, "device": {...}}`.
+Then a JSON line of per-kernel results (launches on the offline and the
+live path), the card's name and power limit, and, last,
+`{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import statistics
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 K1_ATOL = 1e-4       # f32 gradients of [0, 255] images
@@ -38,6 +72,20 @@ T_REL_ATOL = 1e-3    # se3.log of the card's vs the CPU's relative poses
 ATE_MAX = 1e-3       # m; the JAX package's f32 CPU run gives 0.000278 m
 TIMING_REPS = 20
 CHUNK_RUNS = 10
+LIVE_ATE_MAX = 2e-3      # m; the JAX package's CPU run of the live path: 0.000853 m
+# m. The relocalized pose rests on ~28 descriptor matches and moves by
+# millimetres with the input's last bits: the JAX package's CPU run gives
+# 0.00172 m on frames rendered by JAX and 0.005815 m on the port's (at most
+# 1.1e-4 gray levels apart); the port gives 0.0038849 m on frames rendered
+# on the card, on the card and on its host's CPU alike, and 0.005346 m on
+# frames rendered on a CPU.
+RELOC_ATE_MAX = 4e-3
+LIVE_T_ATOL = 1e-3       # se3.log of the card's vs the CPU's per-frame T_wc
+LIVE_WARMUP = 15         # the JAX CLI's own warm-up count
+LIVE_PROFILED_FRAMES = 5  # op-level tracing adds seconds to each profiled frame
+NOISE_FRAME = 50         # frames before it are the same in phases 6 and 7
+CLI_FRAMES = 32
+CLI_ATE_MAX = 2e-2       # m; JAX CPU on the same 32 8-bit frames: 0.011238 m
 
 
 def say(phase: str, msg: str) -> None:
@@ -210,23 +258,63 @@ def wall_ms(fn, reps: int = TIMING_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, reps: int = TIMING_REPS) -> tuple[float, float]:
-    """(device ms, kernel launches) per call of fn: the sum of the self
-    device time of every kernel the profiler saw over `reps` calls."""
+class NoDeviceTime(RuntimeError):
+    """The profiler recorded no kernel in any of its attempts."""
+
+
+def profiled_kernels(fn, reps: int, ops: bool = False, attempts: int = 3):
+    """The profiler's per-kernel averages over `reps` calls of fn, after one
+    unprofiled call; with ops=True also the host-side operators (aten::mul,
+    ...) that launched device work, as a second list. A profile that
+    recorded no device time (the CUDA activity trace occasionally comes back
+    empty for a short window) is taken again, up to `attempts` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(attempts):
+        fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in kernels) > 0:
+            break
+    else:
+        raise NoDeviceTime(f"the profiler saw no device time in {attempts} attempts")
+    if ops:
+        return kernels, [e for e in averages if e.device_type == DeviceType.CPU
+                         and e.self_device_time_total > 0]
+    return kernels
+
+
+def device_profile(fn, reps: int = TIMING_REPS) -> tuple[float, float]:
+    """(device ms, kernel launches) per call of fn: the sum of the self
+    device time of every kernel the profiler saw over `reps` calls."""
+    kernels = profiled_kernels(fn, reps)
     total_us = sum(e.self_device_time_total for e in kernels)
-    if not total_us > 0:
-        raise RuntimeError("the profiler saw no device time")
     return total_us / 1e3 / reps, sum(e.count for e in kernels) / reps
+
+
+def call_ms(fn) -> tuple[float, str]:
+    """(ms per call, timer) of one kernel or plain call: device time from the
+    profiler, or, where the profiler records none, CUDA events around
+    back-to-back calls (which then include the host's dispatch)."""
+    try:
+        return device_profile(fn)[0], "profiler"
+    except NoDeviceTime:
+        return wall_ms(fn), "cuda_events"
+
+
+def turns(kernel, plain) -> dict:
+    """Kernel vs plain ms per call in turns kernel, plain, plain, kernel."""
+    (k1, t1), (p1, t2), (p2, t3), (k2, t4) = (
+        call_ms(f) for f in (kernel, plain, plain, kernel))
+    timers = sorted({t1, t2, t3, t4})
+    return {"device_ms": (k1 + k2) / 2, "plain_device_ms": (p1 + p2) / 2,
+            **({} if timers == ["profiler"] else {"timers": timers})}
 
 
 def phase_timing(pyr, pts, cam, T_rel):
@@ -252,13 +340,299 @@ def phase_timing(pyr, pts, cam, T_rel):
     }
     out = {}
     for name, (kernel, plain) in pairs.items():
-        k1, p1, p2, k2 = (device_profile(f)[0] for f in (kernel, plain, plain, kernel))
         wk1, wp1, wp2, wk2 = (wall_ms(f) for f in (kernel, plain, plain, kernel))
-        out[name] = {
-            "device_ms": (k1 + k2) / 2, "plain_device_ms": (p1 + p2) / 2,
-            "wall_ms": (wk1 + wk2) / 2, "plain_wall_ms": (wp1 + wp2) / 2,
-        }
+        out[name] = {**turns(kernel, plain),
+                     "wall_ms": (wk1 + wk2) / 2, "plain_wall_ms": (wp1 + wp2) / 2}
     return out
+
+
+def live_config():
+    """Configuration 1 at the bench design point: FC, 3 levels, track levels
+    (1, 0), 10 LM iterations, 2048 points, Huber, keyframes, relocalization."""
+    from uwslam_tpu_torch.config import SlamConfig, TrackerConfig
+
+    return SlamConfig(
+        tracker=TrackerConfig(
+            pyramid_levels=3, track_levels=(1, 0), max_iterations=10,
+            num_points=2048, mono_depth=2.0, track_mode="fc",
+        ),
+        use_reloc=True,
+    )
+
+
+def make_system(device):
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.camera import Calibration
+    from uwslam_tpu_torch.system import SlamSystem
+
+    calib = Calibration(raw=bench.CAM, out_width=bench.CAM.width,
+                        out_height=bench.CAM.height)
+    return SlamSystem(calib, live_config(), device=device)
+
+
+def run_live(frames, device, n=None, events=False):
+    """Frames (N, H, W) through a fresh SlamSystem on `device` -> (system,
+    states, per-frame ms from CUDA events or None)."""
+    system = make_system(device)
+    n = frames.shape[0] if n is None else n
+    states, ms = [], []
+    for i in range(n):
+        if events:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        states.append(system.process_frame(frames[i], timestamp=float(i)))
+        if events:
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+    return system, states, (ms if events else None)
+
+
+def live_ate(system, poses, keep=None) -> float:
+    from uwslam_tpu_torch.io.trajectory import ate_rmse
+    from uwslam_tpu_torch.lie import se3
+
+    _, est = system.export_trajectory()
+    gt = se3.inverse(poses.cpu()).numpy()
+    keep = slice(None) if keep is None else keep
+    return ate_rmse(est[keep, :3, 3], gt[keep, :3, 3])
+
+
+def phase_parity_live(frames, cam, seed: int = 1):
+    """Kernels at the live path's B = 1 shapes against their plain versions.
+    Returns ({kernel: max abs error}, {kernel: (kernel, plain) callables at
+    the largest live shape})."""
+    from uwslam_tpu_torch import ops
+    from uwslam_tpu_torch.features import detect_multiscale
+    from uwslam_tpu_torch.image.pyramid import build_pyramid
+    from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.tracking.points import topk_gradient_points
+
+    cfg = live_config().tracker
+    dev = frames.device
+    ref = build_pyramid(frames[0], levels=cfg.pyramid_levels)
+    tgt = build_pyramid(frames[1], levels=cfg.pyramid_levels)
+    pts = topk_gradient_points(ref.images[0], ref.grad_mag[0], cam,
+                               num_points=cfg.num_points, mono_z=cfg.mono_depth)
+    gen = torch.Generator().manual_seed(seed)
+    T_move = se3.exp(0.02 * torch.randn(1, 6, generator=gen)).to(dev)
+    err = {"scharr": 0.0, "warp_sample": 0.0, "bilinear_sample": 0.0}
+    calls = {}
+    for lvl, img in enumerate(ref.images):                  # (1, H_l, W_l)
+        k = ops.scharr_gradients_batched(img)
+        p = ops.scharr_plain(img)
+        for kk, pp, nm in zip(k, p, ("gx", "gy", "gm")):
+            e = float((kk - pp).abs().max())
+            if not e <= K1_ATOL:
+                raise AssertionError(f"scharr B=1 level {lvl} {nm}: {e} > {K1_ATOL}")
+            err["scharr"] = max(err["scharr"], e)
+    for lvl in cfg.track_levels:
+        cam_l = cam.scaled(lvl)
+        stacked = torch.stack([tgt.images[lvl], tgt.grad_x[lvl], tgt.grad_y[lvl]],
+                              dim=1).contiguous()
+        p3d_edge = pts.p3d.clone()
+        p3d_edge[0, :64] = edge_points(cam_l, 64).to(dev)
+        for T, p3d in ((torch.eye(4, device=dev)[None], p3d_edge), (T_move, pts.p3d)):
+            k = ops.warp_and_sample(stacked, p3d, T, cam_l)
+            p = ops.warp_and_sample_plain(stacked, p3d, T, cam_l)
+            err["warp_sample"] = max(err["warp_sample"], compare(
+                k, p, SAMPLE_ATOL, f"warp_sample B=1 C=3 level {lvl}"))
+        if lvl == 0:
+            calls["warp_sample"] = (
+                lambda s=stacked, q=pts.p3d, c=cam_l: ops.warp_and_sample(s, q, T_move, c),
+                lambda s=stacked, q=pts.p3d, c=cam_l: ops.warp_and_sample_plain(s, q, T_move, c),
+            )
+    fcfg = live_config().features
+    kps = detect_multiscale([g[0] for g in ref.grad_x], [g[0] for g in ref.grad_y],
+                            per_level=fcfg.per_level, levels=fcfg.detect_levels)
+    half = 3.5
+    offs = (torch.arange(8, dtype=torch.float32, device=dev) - half) * 2.0
+    du, dv = torch.meshgrid(offs, offs, indexing="xy")
+    taps = torch.stack([du.reshape(-1), dv.reshape(-1)], dim=-1)
+    for lvl, img in enumerate(ref.images):
+        uv = ((kps.uv / (1 << lvl))[:, None, :] + taps[None]).reshape(1, -1, 2)
+        image = img[None]                                   # (1, 1, H_l, W_l)
+        k = ops.cuda_bilinear_sample(image, uv)
+        p = ops.bilinear_sample_plain(image, uv)
+        err["bilinear_sample"] = max(err["bilinear_sample"], compare(
+            k, p, SAMPLE_ATOL, f"bilinear_sample B=1 C=1 describe level {lvl}"))
+        if lvl == 0:
+            calls["bilinear_sample"] = (
+                lambda i=image, q=uv: ops.cuda_bilinear_sample(i, q),
+                lambda i=image, q=uv: ops.bilinear_sample_plain(i, q),
+            )
+    calls["scharr"] = (lambda f=frames[:1]: ops.scharr_gradients_batched(f),
+                       lambda f=frames[:1]: ops.scharr_plain(f))
+    return err, calls
+
+
+def card_vs_cpu(card_states, cpu_states, what: str) -> float:
+    """Statuses and keyframe flags must be equal and every T_wc within
+    LIVE_T_ATOL on se3.log; returns the largest se3.log difference."""
+    from uwslam_tpu_torch.lie import se3
+
+    n = len(cpu_states)
+    for key in ("status", "is_keyframe"):
+        card = [getattr(s, key) for s in card_states[:n]]
+        cpu = [getattr(s, key) for s in cpu_states]
+        if card != cpu:
+            raise AssertionError(f"{what}: {key} differs: card {card} vs CPU {cpu}")
+    card = torch.from_numpy(np.stack([s.T_wc for s in card_states[:n]]))
+    cpu = torch.from_numpy(np.stack([s.T_wc for s in cpu_states]))
+    dev = float((se3.log(card) - se3.log(cpu)).abs().max())
+    if not dev <= LIVE_T_ATOL:
+        raise AssertionError(f"{what}: card vs CPU se3.log differs by {dev} > {LIVE_T_ATOL}")
+    return dev
+
+
+def phase_live(frames, poses, table, cpu_states):
+    """Configuration 1 live on the card with fresh launch counts; the CPU's
+    run of the first frames (`cpu_states`) must agree."""
+    for k in table:
+        k["wrapper"].launches = 0
+    system, states, frame_ms = run_live(frames, frames.device, events=True)
+    torch.cuda.synchronize()
+    launches = {k["name"]: k["wrapper"].launches for k in table}
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the live path: {missing}")
+    bad = [(s.frame_id, s.status) for s in states if s.status != "ok"]
+    if bad:
+        raise AssertionError(f"live frames not ok: {bad[:10]}")
+    if not all(np.isfinite(s.T_wc).all() for s in states):
+        raise AssertionError("non-finite live pose")
+    ate = live_ate(system, poses)
+    if not ate <= LIVE_ATE_MAX:
+        raise AssertionError(f"live ATE {ate} m > {LIVE_ATE_MAX} m")
+    dev_cpu = card_vs_cpu(states, cpu_states, "live path")
+    return {
+        "launches": launches, "ate": ate, "card_vs_cpu": dev_cpu,
+        "cpu_frames": len(cpu_states),
+        "keyframes": int(sum(s.is_keyframe for s in states)),
+        "min_inliers": int(min(s.tracked_inliers for s in states)),
+    }, frame_ms
+
+
+def with_noise_frame(frames):
+    """The frames with frame NOISE_FRAME replaced by uniform noise (numpy
+    seed 0)."""
+    noisy = frames.clone()
+    noise = np.random.default_rng(0).uniform(0, 255, tuple(frames.shape[1:]))
+    noisy[NOISE_FRAME] = torch.from_numpy(noise.astype(np.float32)).to(frames.device)
+    return noisy
+
+
+def phase_reloc(noisy, poses, cpu_states):
+    """The relocalization run on the card; the CPU's run of the same frames
+    (`cpu_states`) must agree frame by frame, the relocalized pose included."""
+    system, states, _ = run_live(noisy, noisy.device)
+    got = (states[NOISE_FRAME].status, states[NOISE_FRAME + 1].status)
+    if got != ("lost", "relocalized"):
+        raise AssertionError(f"frames {NOISE_FRAME}, {NOISE_FRAME + 1}: {got}, "
+                             "want ('lost', 'relocalized')")
+    others = [s.status for i, s in enumerate(states)
+              if i not in (NOISE_FRAME, NOISE_FRAME + 1)]
+    keep = np.array([i != NOISE_FRAME for i in range(len(states))])
+    ate = live_ate(system, poses, keep)
+    if not ate <= RELOC_ATE_MAX:
+        raise AssertionError(f"relocalization run ATE {ate} m > {RELOC_ATE_MAX} m")
+    dev_cpu = card_vs_cpu(states, cpu_states, "relocalization run")
+    return {"statuses": list(got), "other_not_ok": sum(s != "ok" for s in others),
+            "ate": ate, "keyframes": int(sum(s.is_keyframe for s in states)),
+            "card_vs_cpu": dev_cpu}
+
+
+def write_dataset(frames, poses, root: Path):
+    """8-bit PGM frames named by TUM timestamps, TUM ground truth (T_wc) and
+    an undistorted calibration XML of the bench camera."""
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.lie import se3
+
+    rgb = root / "rgb"
+    rgb.mkdir()
+    imgs = frames.clamp(0, 255).to(torch.uint8).cpu().numpy()
+    T_wc = se3.inverse(poses.cpu())
+    q, t = (x.numpy() for x in se3.to_quaternion_translation(T_wc))
+    lines = ["# ground truth\n# synthetic\n# timestamp tx ty tz qx qy qz qw\n"]
+    for i, img in enumerate(imgs):
+        ts = f"{1.0 + 0.033 * i:.6f}"
+        h, w = img.shape
+        (rgb / f"{ts}.pgm").write_bytes(f"P5\n{w} {h}\n255\n".encode() + img.tobytes())
+        lines.append(f"{ts} {t[i, 0]} {t[i, 1]} {t[i, 2]} "
+                     f"{q[i, 1]} {q[i, 2]} {q[i, 3]} {q[i, 0]}\n")
+    (root / "groundtruth.txt").write_text("".join(lines))
+    cam = bench.CAM
+    (root / "calib.xml").write_text(f"""<?xml version="1.0"?>
+<opencv_storage>
+<in_width>{cam.width}</in_width><in_height>{cam.height}</in_height>
+<out_width>{cam.width}</out_width><out_height>{cam.height}</out_height>
+<calibration_values type_id="opencv-matrix"><rows>1</rows><cols>4</cols>
+<dt>f</dt><data>{cam.fx} {cam.fy} {cam.cx} {cam.cy}</data></calibration_values>
+<rectification type_id="opencv-matrix"><rows>1</rows><cols>4</cols>
+<dt>f</dt><data>0 0 0 0</data></rectification>
+</opencv_storage>
+""")
+    return rgb, root / "calib.xml", root / "groundtruth.txt"
+
+
+def phase_cli(frames, poses):
+    """The CLI live and offline on 8-bit PGM files; each must exit 0 and
+    print an ATE within CLI_ATE_MAX."""
+    from uwslam_tpu_torch.cli.main import main as cli_main
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rgb, calib, gt = write_dataset(frames[:CLI_FRAMES], poses[:CLI_FRAMES], Path(tmp))
+        base = ["-d", str(rgb), "-c", str(calib), "--tum-gt", str(gt), "--levels", "3",
+                "--track-levels", "1,0", "--mono-depth", "2.0", "--platform", "cuda"]
+        for name, extra in (("live", []), ("offline", ["--offline", "--track-mode", "fc"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(base + extra + ["--trajectory-out", str(Path(tmp) / f"{name}.txt")])
+            text = buf.getvalue()
+            m = re.search(r"ATE RMSE \(Sim3-aligned\): ([0-9.eE+-]+) m", text)
+            if rc != 0 or m is None:
+                raise AssertionError(f"CLI {name}: exit {rc}, output {text!r}")
+            ate = float(m.group(1))
+            if not ate <= CLI_ATE_MAX:
+                raise AssertionError(f"CLI {name}: ATE {ate} m > {CLI_ATE_MAX} m")
+            out[name] = {"ate": ate, "s": round(time.perf_counter() - t0, 2)}
+    return out
+
+
+def phase_live_timing(frames, calls, frame_ms):
+    """Per-frame latency and frames/s of phase 6's card run after the
+    warm-up frames (CUDA events around each process_frame, which ends in its
+    diagnostics transfer); the profiler's device busy time, launches and
+    costliest operators per frame over 5 frames of a fresh run; and each
+    kernel against its plain version at the live path's largest shape
+    (`turns`)."""
+    steady = frame_ms[LIVE_WARMUP:]
+    system = make_system(frames.device)
+    for i in range(LIVE_WARMUP):
+        system.process_frame(frames[i], timestamp=float(i))
+    reps = LIVE_PROFILED_FRAMES
+    window = iter(range(LIVE_WARMUP, LIVE_WARMUP + reps + 1))
+    kernels, ops = profiled_kernels(
+        lambda: system.process_frame(frames[next(window)], timestamp=0.0), reps, ops=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
+    per_kernel = {name: turns(kernel, plain) for name, (kernel, plain) in calls.items()}
+    return {
+        "frames_per_s": len(steady) / (sum(steady) / 1e3),
+        "latency_ms_median": statistics.median(steady),
+        "latency_ms_p90": float(np.percentile(steady, 90)),
+        "device_busy_ms_per_frame": busy_ms,
+        "idle_share": 1.0 - busy_ms / statistics.mean(steady),
+        "launches_per_frame": sum(e.count for e in kernels) / reps,
+        "top_ops_device_ms_and_calls_per_frame": {
+            e.key: [round(e.self_device_time_total / 1e3 / reps, 4), round(e.count / reps, 1)]
+            for e in top
+        },
+        "kernels_at_live_shapes": per_kernel,
+    }
 
 
 def main() -> None:
@@ -296,6 +670,7 @@ def main() -> None:
     say("4 main path", json.dumps(main_path)
         + f"; first chunk and CPU run {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     chunk_s = statistics.median(bench.time_chunks(tracker, frames, CHUNK_RUNS))
     busy_ms, launches = device_profile(lambda: tracker(frames, mono_z=bench.MONO_Z), 1)
     T_rel, _, _ = tracker(frames, mono_z=bench.MONO_Z)
@@ -305,13 +680,35 @@ def main() -> None:
         f"{chunk_s * 1e3:.2f} ms per {frames.shape[0]}-frame chunk; profiled "
         f"chunk: {busy_ms:.2f} ms device busy, {launches:.0f} kernel launches, "
         f"idle share {1 - busy_ms / (chunk_s * 1e3):.3f}); per call: "
-        + json.dumps(times) + f"; {gpu}")
+        + json.dumps(times) + f"; {gpu}; {time.perf_counter() - t0:.1f} s")
+
+    errs_live, live_calls = phase_parity_live(frames, cam)
+    torch.cuda.synchronize()
+    say("3b parity (live shapes)", "max abs error vs plain: " + json.dumps(errs_live))
+
+    t0 = time.perf_counter()
+    noisy = with_noise_frame(frames)
+    _, cpu_states, _ = run_live(noisy.cpu(), "cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    live, frame_ms = phase_live(frames, poses, table, cpu_states[:NOISE_FRAME])
+    say("6 live path", json.dumps(live) + f"; card run {time.perf_counter() - t0:.1f} s, "
+        f"CPU run of the {noisy.shape[0]} frames of phase 7 {cpu_s:.1f} s")
+    t0 = time.perf_counter()
+    reloc = phase_reloc(noisy, poses, cpu_states)
+    say("7 relocalization", json.dumps(reloc) + f"; {time.perf_counter() - t0:.1f} s")
+    say("8 cli", json.dumps(phase_cli(frames, poses)))
+    t0 = time.perf_counter()
+    live_times = phase_live_timing(frames, live_calls, frame_ms)
+    say("9 live timing", json.dumps(live_times) + f"; {gpu}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"],
          "launches": main_path["launches"][k["name"]],
-         "max_abs_err": errs[k["name"]],
+         "launches_live": live["launches"][k["name"]],
+         "max_abs_err": max(errs[k["name"]], errs_live[k["name"]]),
          "ms": times[k["name"]]["device_ms"],
          "plain_ms": times[k["name"]]["plain_device_ms"]}
         for k in table

@@ -1,0 +1,223 @@
+"""Parity of the port's forward-compositional tracking and affine brightness
+(`residuals_and_jacobian`, `lm_level`, `lm_level_ic(affine=True)`, `track`
+and `track_sequence_batched` with mode="fc") with the JAX package's CPU
+branch, on the same numpy inputs.
+
+Tolerances: residuals and Jacobians rtol 1e-5 / atol 1e-4 with equal masks
+(the warped points and the Jacobian's f32 products are rounded in another
+order); LM poses atol 1e-5, errors rtol 1e-3, inlier counts exactly;
+brightness (a, b) rtol 1e-4 / atol 1e-4 per level (b is in intensity
+units, up to ~90 on the garbage pair); tracked poses 1e-4 on se3.log. With
+affine brightness over three levels the 8x8 normal equations are poorly
+conditioned (columns -I_ref and -1), so the tracked (a, b) is held to atol
+2e-3 gray levels and its LM iteration counts are not compared; without it
+they are equal.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from uwslam_tpu.camera import PinholeCamera as JaxCamera  # noqa: E402
+from uwslam_tpu.image.pyramid import bilinear_sample as jax_sample  # noqa: E402
+from uwslam_tpu.image.pyramid import build_pyramid_batched as jax_pyramid  # noqa: E402
+from uwslam_tpu.image.pyramid import scharr_gradients as jax_scharr  # noqa: E402
+from uwslam_tpu.lie import se3 as jse3  # noqa: E402
+from uwslam_tpu.tracking import photometric as jphoto  # noqa: E402
+from uwslam_tpu.tracking import sequence as jseq  # noqa: E402
+from uwslam_tpu.tracking.points import TrackPoints as JaxPoints  # noqa: E402
+from uwslam_tpu.tracking.points import topk_gradient_points as jax_topk  # noqa: E402
+from uwslam_tpu.tracking.robust import WeightKind as JaxWeightKind  # noqa: E402
+from uwslam_tpu.utils.synthetic import render_plane_view  # noqa: E402
+from uwslam_tpu_torch.interop import (  # noqa: E402
+    camera_from_jax,
+    points_from_numpy,
+    pyramid_from_numpy,
+)
+from uwslam_tpu_torch.lie import se3  # noqa: E402
+from uwslam_tpu_torch.tracking import photometric, sequence  # noqa: E402
+from uwslam_tpu_torch.tracking.robust import WeightKind  # noqa: E402
+
+JCAM = JaxCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
+CAM = camera_from_jax(JCAM)
+NUM_POINTS = 512
+# Power-of-two focal lengths: a depth-1 point projects exactly onto the last
+# column or row, in both packages.
+JCAM_EDGE = JaxCamera(fx=64.0, fy=64.0, cx=31.5, cy=23.5, width=64, height=48)
+CAM_EDGE = camera_from_jax(JCAM_EDGE)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _log_diff(T, T_jax):
+    return float((se3.log(T) - se3.log(_t(T_jax))).abs().max())
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    """Five synthetic frames (four pairs), the JAX pyramid and selected
+    points (without the level-0 gradient payload, as the live path selects);
+    the last target is an unrelated view, so one pair tracks garbage."""
+    twists = [[0.02 * i, 0.01 * i, 0.004 * i, 0.002 * i, -0.003 * i, 0.004 * i]
+              for i in range(5)]
+    frames = np.stack([
+        np.asarray(render_plane_view(JCAM, jse3.exp(jnp.asarray(t, jnp.float32)), 2.0))
+        for t in twists
+    ])
+    frames[4] = np.asarray(render_plane_view(
+        JCAM, jse3.exp(jnp.asarray([0.3, 0.2, 0.0, 0.0, 0.0, 0.4], jnp.float32)), 2.0,
+        seed=3))
+    pyr = jax_pyramid(jnp.asarray(frames), levels=4)
+    pts = jax.vmap(lambda i, g: jax_topk(i, g, JCAM, num_points=NUM_POINTS, mono_z=2.0))(
+        pyr.images[0], pyr.grad_mag[0])
+    ref_pyr = jax.tree.map(lambda x: x[:-1], pyr)
+    tgt_pyr = jax.tree.map(lambda x: x[1:], pyr)
+    ref_pts = jax.tree.map(lambda x: x[:-1], pts)
+    return ref_pyr, tgt_pyr, ref_pts
+
+
+def _level_points(ref_pyr, ref_pts, lvl):
+    """The JAX FC reference pass at level `lvl` (one intensity gather)."""
+    uv = ref_pts.uv * (1.0 / (1 << lvl))
+
+    def one(img, uv_b, p3d, valid):
+        i_ref, ok = jax_sample(img, uv_b)
+        return JaxPoints(uv=uv_b, p3d=p3d, intensity=i_ref, valid=valid & ok)
+
+    return jax.vmap(one)(ref_pyr.images[lvl], uv, ref_pts.p3d, ref_pts.valid)
+
+
+def _edge_p3d(n, seed):
+    """Points for an identity pose: exact right and bottom edges, points
+    behind and at the camera, the rest random in front."""
+    rng = np.random.default_rng(seed)
+    x = (JCAM_EDGE.width - 1.0 - JCAM_EDGE.cx) / JCAM_EDGE.fx
+    y = (JCAM_EDGE.height - 1.0 - JCAM_EDGE.cy) / JCAM_EDGE.fy
+    p = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.4, 0.4, n),
+                  rng.uniform(0.8, 3.0, n)], -1)
+    p[:8] = np.stack([np.full(8, x), np.linspace(-0.3, 0.3, 8), np.ones(8)], -1)
+    p[8:16] = np.stack([np.linspace(-0.45, 0.45, 8), np.full(8, y), np.ones(8)], -1)
+    p[16] = [x, y, 1.0]
+    p[17:21] = [[0, 0, -1.0], [0, 0, 5e-4], [0, 0, 0.0], [0.1, 0.1, 1e-3]]
+    return p.astype(np.float32)
+
+
+def test_residuals_and_jacobian_match_jax_with_edges():
+    rng = np.random.default_rng(0)
+    B, N, H, W = 3, 96, 48, 64
+    imgs = np.stack([np.asarray(render_plane_view(
+        JCAM_EDGE, jse3.exp(jnp.asarray(rng.normal(0, 0.1, 6), jnp.float32)), 2.0))
+        for _ in range(B)])
+    grads = [jax_scharr(jnp.asarray(im)) for im in imgs]
+    gx = np.stack([np.asarray(g[0]) for g in grads])
+    gy = np.stack([np.asarray(g[1]) for g in grads])
+    p3d = np.stack([_edge_p3d(N, seed=b) for b in range(B)])
+    T = np.array(jse3.exp(jnp.asarray(rng.normal(0, 0.03, (B, 6)), jnp.float32)))
+    T[0] = np.eye(4, dtype=np.float32)   # the identity pair carries the edge points
+    ref_int = rng.uniform(0, 255, (B, N)).astype(np.float32)
+    valid = rng.uniform(size=(B, N)) > 0.1
+    valid[0, :21] = True
+    pts = JaxPoints(uv=np.zeros((B, N, 2), np.float32), p3d=p3d, intensity=ref_int,
+                    valid=valid)
+    want = jax.vmap(lambda T_, p, ri, im, x, y: jphoto.residuals_and_jacobian(
+        T_, p, ri, im, x, y, JCAM_EDGE))(T, jax.tree.map(jnp.asarray, pts),
+                                         ref_int, imgs, gx, gy)
+    got = photometric.residuals_and_jacobian(
+        _t(T), points_from_numpy(pts), _t(ref_int), _t(imgs), _t(gx), _t(gy), CAM_EDGE)
+    r, J, v = (np.asarray(x) for x in want)
+    np.testing.assert_array_equal(got[2].numpy(), v)
+    assert v[0, :17].all() and not v[0, 17:21].any()   # edges in, behind out
+    np.testing.assert_allclose(got[0].numpy(), r, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got[1].numpy(), J, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("kind", ["huber", "tukey", "none"])
+def test_lm_level_matches_jax(pairs, kind, affine):
+    ref_pyr, tgt_pyr, ref_pts = pairs
+    lvl = 1
+    pts_l = _level_points(ref_pyr, ref_pts, lvl)
+    T0 = np.asarray(jse3.exp(jnp.asarray(np.full((4, 6), 0.002), jnp.float32)))
+    ab0 = np.tile(np.asarray([[0.01, -2.0]], np.float32), (4, 1))
+    want = jax.vmap(lambda T_, p, im, x, y, ab: jphoto.lm_level(
+        T_, p, p.intensity, im, x, y, JCAM.scaled(lvl), max_iters=8,
+        weight_kind=JaxWeightKind(kind), affine=affine, ab0=ab,
+    ))(T0, pts_l, tgt_pyr.images[lvl], tgt_pyr.grad_x[lvl], tgt_pyr.grad_y[lvl], ab0)
+    got = photometric.lm_level(
+        _t(T0), points_from_numpy(pts_l), _t(pts_l.intensity), _t(tgt_pyr.images[lvl]),
+        _t(tgt_pyr.grad_x[lvl]), _t(tgt_pyr.grad_y[lvl]), CAM.scaled(lvl),
+        max_iters=8, weight_kind=WeightKind(kind), affine=affine, ab0=_t(ab0),
+    )
+    np.testing.assert_allclose(got.T[:3].numpy(), np.asarray(want.T)[:3], atol=1e-5)
+    np.testing.assert_allclose(got.error.numpy(), np.asarray(want.error), rtol=1e-3)
+    np.testing.assert_array_equal(got.n_inlier.numpy(), np.asarray(want.n_inlier))
+    np.testing.assert_allclose(got.ab.numpy(), np.asarray(want.ab), rtol=1e-4, atol=1e-4)
+
+
+def test_lm_level_ic_affine_matches_jax(pairs):
+    ref_pyr, tgt_pyr, ref_pts = pairs
+    lvl = 2
+    uv = ref_pts.uv * (1.0 / (1 << lvl))
+    samp = jax.vmap(jax_sample)
+    gx, _ = samp(ref_pyr.grad_x[lvl], uv)
+    gy, _ = samp(ref_pyr.grad_y[lvl], uv)
+    pts_l = _level_points(ref_pyr, ref_pts, lvl)
+    T0 = np.tile(np.eye(4, dtype=np.float32), (4, 1, 1))
+    want = jax.vmap(lambda T_, p, x, y, im: jphoto.lm_level_ic(
+        T_, p, p.intensity, x, y, im, JCAM.scaled(lvl), max_iters=8, affine=True,
+    ))(T0, pts_l, gx, gy, tgt_pyr.images[lvl])
+    got = photometric.lm_level_ic(
+        _t(T0), points_from_numpy(pts_l), _t(pts_l.intensity), _t(gx), _t(gy),
+        _t(tgt_pyr.images[lvl]), CAM.scaled(lvl), max_iters=8, affine=True,
+    )
+    np.testing.assert_allclose(got.T[:3].numpy(), np.asarray(want.T)[:3], atol=1e-5)
+    np.testing.assert_allclose(got.J.numpy(), np.asarray(want.J_best), rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(got.n_inlier.numpy(), np.asarray(want.n_inlier))
+    np.testing.assert_allclose(got.ab.numpy(), np.asarray(want.ab), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("affine", [False, True])
+def test_track_fc_matches_jax_per_pair(pairs, batch, affine):
+    """FC tracking of `batch` pairs at once against JAX's track of each pair:
+    B = 1 is the live path's shape; B = 3 includes the garbage pair."""
+    ref_pyr, tgt_pyr, ref_pts = pairs
+    pick = [3, 0, 2][:batch] if batch == 3 else [1]
+    sel = lambda tree: jax.tree.map(lambda x: x[np.asarray(pick)], tree)  # noqa: E731
+    rp, tp, pp = sel(ref_pyr), sel(tgt_pyr), sel(ref_pts)
+    T_init = np.asarray(jse3.exp(jnp.asarray(np.full((batch, 6), 0.003), jnp.float32)))
+    levels, iters = (2, 1, 0), (8, 6, 4)
+    got = photometric.track(
+        pyramid_from_numpy(rp), pyramid_from_numpy(tp), points_from_numpy(pp), CAM,
+        T_init=_t(T_init), levels=levels, max_iters=iters, mode="fc", affine=affine,
+    )
+    for i in range(batch):
+        one = lambda tree: jax.tree.map(lambda x: x[i], tree)  # noqa: E731
+        want = jphoto.track(one(rp), one(tp), one(pp), JCAM, T_init=jnp.asarray(T_init[i]),
+                            levels=levels, max_iters=iters, mode="fc", affine=affine)
+        assert _log_diff(got.T[i], want.T) < 1e-4
+        assert int(got.inliers[i]) == int(want.inliers)
+        if not affine:
+            assert int(got.iterations[i]) == int(want.iterations)
+        assert bool(got.converged[i]) == bool(want.converged)
+        np.testing.assert_allclose(float(got.error[i]), float(want.error), rtol=1e-3)
+        np.testing.assert_allclose(got.affine[i].numpy(), np.asarray(want.affine),
+                                   atol=2e-3)
+
+
+def test_track_sequence_batched_fc_matches_jax():
+    poses = [jse3.exp(jnp.asarray([0.015 * i, 0.006 * i, 0.003 * i, 0.001 * i,
+                                   -0.002 * i, 0.002 * i], jnp.float32)) for i in range(5)]
+    frames = jnp.stack([render_plane_view(JCAM, T, 2.0) for T in poses])
+    cfg = dict(levels=4, track_levels=(2, 1, 0), num_points=NUM_POINTS, max_iters=(8, 6, 4))
+    T_j, inl_j, _ = jseq.track_sequence_batched(frames, JCAM, mono_z=2.0, mode="fc", **cfg)
+    tracker = sequence.SequenceTracker(CAM, mode="fc", **cfg)
+    T, inl, _ = tracker(_t(frames), mono_z=2.0)
+    assert _log_diff(T, T_j) < 1e-4
+    np.testing.assert_array_equal(inl.numpy(), np.asarray(inl_j))

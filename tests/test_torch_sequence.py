@@ -82,8 +82,8 @@ def test_functional_and_module_entry_points_agree(slice_runs):
     frames = bench.bench_frames(bench.bench_poses(8), CAM)
     T2, _, _ = sequence.track_sequence_batched(frames, CAM, mono_z=2.0, **CONFIG)
     assert float((se3.log(T2) - se3.log(T)).abs().max()) < 1e-4
-    with pytest.raises(NotImplementedError):
-        sequence.SequenceTracker(CAM, mode="fc")
+    with pytest.raises(ValueError):
+        sequence.SequenceTracker(CAM, mode="forward")
 
 
 def test_bench_poses_match_jax():

@@ -167,7 +167,10 @@ def test_track_ic_matches_jax(pairs):
 
 
 def test_track_refuses_forward_compositional_mode(pairs):
+    """Forward-compositional tracking is spelled "fc": the long name
+    "forward", like any mode other than "fc" and "ic", is refused. FC itself
+    is held against the JAX package in tests/test_torch_fc.py."""
     ref_pyr, tgt_pyr, ref_pts = pairs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         photometric.track(pyramid_from_numpy(ref_pyr), pyramid_from_numpy(tgt_pyr),
-                          points_from_numpy(ref_pts), CAM, mode="fc")
+                          points_from_numpy(ref_pts), CAM, mode="forward")

@@ -1,0 +1,294 @@
+"""Command line of the port: `python -m uwslam_tpu_torch.cli.main`.
+
+The flags of `uwslam_tpu.cli.main` (uw-slam's -d/-s/-c/--TUM/--EUROC plus the
+JAX package's own), on one torch device: `--platform cuda` (the default)
+or `cpu`. Without a card the default exits non-zero; it never continues on
+the CPU.
+
+The live loop is the synchronous `SlamSystem.process_frame`; the JAX
+package's pipelined loop (`process_frame_async`) is not ported yet, and the
+JAX package's tests pin both loops to the same trajectory. `--offline`
+tracks the dataset in chunks with the batched tracker (`track_sequence_batched`,
+FC or IC). Flags of later slices exit non-zero naming the ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+# Flags whose slice is not ported: flag -> (what, ROADMAP slice and item).
+UNPORTED_FLAGS = {
+    "depth": ("-p/--depth (depth images)", "slice 1, item 3"),
+    "features": ("--features (the feature front-end)", "slice 4, item 14"),
+    "ba": ("--ba (window BA)", "slice 6, item 16"),
+    "photo_ba": ("--photo-ba (photometric window BA)", "slice 6, item 16"),
+    "loop_closure": ("--loop-closure", "slice 7, item 17"),
+    "dist_ba": ("--dist-ba (global distributed BA)", "slice 7, item 17"),
+    "depth_bootstrap": ("--depth-bootstrap (the depth prior)", "slice 3, item 11"),
+    "reference_mode": ("--reference-mode (needs the feature front-end)",
+                       "slice 4, item 14"),
+    "viz_port": ("--viz-port (live view)", "slice 8, item 18"),
+    "map_out": ("--map-out (PLY map export)", "slice 8, item 18"),
+    "checkpoint": ("--checkpoint (session checkpoints)", "slice 8, item 18"),
+    "resume": ("--resume (session checkpoints)", "slice 8, item 18"),
+    "trace": ("--trace (device trace capture)", "slice 8, item 18"),
+    "host_devices": ("--host-devices (multi-device runs)", "slice 7, item 17"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="uwslam-tpu-torch",
+        description="Monocular direct SLAM (uw-slam capability surface), "
+                    "PyTorch and CUDA",
+    )
+    p.add_argument("-d", "--directory", required=True, help="directory of input images")
+    p.add_argument("-s", "--start", type=int, default=0, help="start index in the dataset")
+    p.add_argument("-c", "--calibration", required=True,
+                   help="calibration XML (OpenCV FileStorage) or JSON")
+    p.add_argument("-p", "--depth", default=None, help="TUM depth image directory")
+    p.add_argument("--tum-gt", "--TUM", default=None,
+                   help="TUM ground-truth file for ATE evaluation")
+    p.add_argument("--euroc-gt", "--EUROC", default=None,
+                   help="EUROC ground-truth CSV for ATE evaluation")
+    p.add_argument("--trajectory-out", default=None,
+                   help="write the estimated trajectory (TUM format)")
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--levels", type=int, default=5, help="pyramid levels")
+    p.add_argument("--euroc", action="store_true",
+                   help="treat -d as an EUROC mav0 dir (cam0/data/*.png)")
+    p.add_argument("--features", action="store_true", help="feature front-end")
+    p.add_argument("--ba", action="store_true", help="sliding-window bundle adjustment")
+    p.add_argument("--ba-prior-weight", type=float, default=None,
+                   help="window-BA pose-prior information weight")
+    p.add_argument("--photo-ba", action="store_true", help="photometric window BA")
+    p.add_argument("--loop-closure", action="store_true",
+                   help="loop detection + pose-graph correction")
+    p.add_argument("--dist-ba", action="store_true",
+                   help="end-of-run global distributed bundle adjustment")
+    p.add_argument("--mono-depth", type=float, default=1.0,
+                   help="assumed scene depth for pure-mono tracking")
+    p.add_argument("--reference-mode", action="store_true",
+                   help="uw-slam reference-semantics preset")
+    p.add_argument("--loop-se3", action="store_true",
+                   help="with --loop-closure: SE(3) pose graph instead of Sim(3)")
+    p.add_argument("--depth-bootstrap", action="store_true",
+                   help="monocular depth bootstrapping (implies --features)")
+    p.add_argument("--num-points", type=int, default=2048,
+                   help="tracked point budget per frame")
+    p.add_argument("--bootstrap-edge-ratio", type=float, default=None)
+    p.add_argument("--bootstrap-block", type=int, default=None)
+    p.add_argument("--bootstrap-shrink", type=float, default=None)
+    p.add_argument("--kf-min-gap", type=int, default=3,
+                   help="minimum frames between keyframes")
+    p.add_argument("--kf-max-gap", type=int, default=30,
+                   help="maximum frames between keyframes")
+    p.add_argument("--kp-per-level", type=int, default=256,
+                   help="feature keypoint capacity per pyramid level")
+    p.add_argument("--viz-port", type=int, default=None, help="live trajectory view port")
+    p.add_argument("--map-out", default=None, help="write the keyframe map as PLY")
+    p.add_argument("--checkpoint", default=None, help="save the session state here")
+    p.add_argument("--resume", default=None, help="resume a saved session")
+    p.add_argument("--profile", action="store_true",
+                   help="print a per-stage timing breakdown")
+    p.add_argument("--trace", default=None, metavar="DIR", help="capture a device trace")
+    p.add_argument("--weights", choices=("tukey", "huber", "none"), default="huber",
+                   help="robust IRLS kernel for photometric tracking")
+    p.add_argument("--track-levels", default=None,
+                   help="comma-separated coarse-to-fine level schedule, e.g. "
+                        "'2,1,0' (default: levels-2 .. 0)")
+    p.add_argument("--gn-iters", type=int, default=10,
+                   help="max LM iterations per pyramid level")
+    p.add_argument("--track-mode", choices=("fc", "ic"), default="fc",
+                   help="forward- or inverse-compositional LM")
+    p.add_argument("--affine", action="store_true",
+                   help="jointly estimate affine brightness (a, b) per frame pair")
+    p.add_argument("--no-pipeline", action="store_true",
+                   help="process every frame synchronously (the port's live "
+                        "loop always does)")
+    p.add_argument("--offline", action="store_true",
+                   help="batch the dataset through the pair-parallel tracker "
+                        "(odometry only: no keyframes or relocalization)")
+    p.add_argument("--chunk", type=int, default=64,
+                   help="frames per device batch in --offline mode")
+    p.add_argument("--platform", default="cuda", choices=("cpu", "cuda"),
+                   help="torch device to run on (default cuda; no fallback)")
+    p.add_argument("--host-devices", type=int, default=None,
+                   help="number of virtual host devices (multi-device runs)")
+    return p
+
+
+def _refuse_unported_flags(args) -> str | None:
+    from ..config import unported
+
+    for name, (what, item) in UNPORTED_FLAGS.items():
+        if getattr(args, name) not in (None, False):
+            return str(unported(what, item))
+    return None
+
+
+def _report_ate(ts, poses, args) -> None:
+    from ..io import associate, ate_rmse, read_groundtruth_euroc, read_groundtruth_tum
+
+    gt_rows = None
+    if args.tum_gt:
+        gt_rows = read_groundtruth_tum(args.tum_gt)
+    elif args.euroc_gt:
+        gt_rows = read_groundtruth_euroc(args.euroc_gt)
+    if gt_rows is None or not len(gt_rows):
+        return
+    ia, ib = associate(ts, gt_rows[:, 0], max_dt=0.05)
+    if len(ia) >= 3:
+        rmse = ate_rmse(poses[ia][:, :3, 3], gt_rows[ib][:, 1:4])
+        print(f"ATE RMSE (Sim3-aligned): {rmse:.4f} m over {len(ia)} poses")
+    else:
+        print("WARNING: too few associated gt poses for ATE", file=sys.stderr)
+
+
+def run_offline(args, system, config, seq) -> int:
+    """Offline odometry: chunks of `--chunk` frames, overlapping by one so
+    the relative poses chain across chunk boundaries, each tracked as one
+    batch of pairs from the identity."""
+    import numpy as np
+    import torch
+
+    from ..io import FramePrefetcher, write_trajectory_tum
+    from ..tracking import compose_trajectory, track_sequence_batched
+
+    tcfg = config.tracker
+    n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
+    if n < 2:
+        print("offline mode needs >= 2 frames", file=sys.stderr)
+        return 1
+    chunk = max(2, args.chunk)
+    x0, y0, w, h = system._roi
+
+    def track_chunk(imgs):
+        frames = torch.stack(imgs)
+        T_rel, _, _ = track_sequence_batched(
+            frames, system.cam, mono_z=tcfg.mono_depth, levels=tcfg.pyramid_levels,
+            track_levels=tcfg.track_levels, num_points=tcfg.num_points,
+            max_iters=tcfg.max_iterations, mode=tcfg.track_mode,
+            affine=tcfg.affine_brightness,
+        )
+        return T_rel
+
+    T_rel_all, imgs = [], []
+    t0 = time.perf_counter()
+    prefetcher = FramePrefetcher(seq)
+    try:
+        for i, (img, _) in prefetcher:
+            if i >= n:
+                break
+            dev = torch.from_numpy(img).to(system.device, torch.float32)
+            imgs.append(dev[y0:y0 + h, x0:x0 + w].contiguous())
+            if len(imgs) == chunk:
+                T_rel_all.append(track_chunk(imgs))
+                imgs = imgs[-1:]     # one-frame overlap chains the chunks
+    finally:
+        prefetcher.close()
+    if len(imgs) >= 2:
+        T_rel_all.append(track_chunk(imgs))
+    poses = compose_trajectory(torch.cat(T_rel_all).cpu()).numpy()
+    n = len(poses)
+    dt = time.perf_counter() - t0
+    print(f"tracked {n} frames in {dt:.2f}s ({n / dt:.1f} fps, offline)", file=sys.stderr)
+    ts = (
+        np.asarray(seq.timestamps[:n]) if seq.timestamps is not None
+        else np.arange(n, dtype=np.float64)
+    )
+    if args.trajectory_out:
+        write_trajectory_tum(args.trajectory_out, ts, poses)
+    _report_ate(ts, poses, args)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    refused = _refuse_unported_flags(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 2
+
+    import torch
+
+    if args.platform == "cuda" and not torch.cuda.is_available():
+        print("error: --platform cuda (the default) needs a CUDA card and none is "
+              "visible; pass --platform cpu to run on the CPU", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0) if args.platform == "cuda" else torch.device("cpu")
+
+    from .. import camera
+    from ..config import FeatureConfig, KeyframeConfig, SlamConfig, TrackerConfig
+    from ..io import FramePrefetcher, open_directory, open_euroc
+    from ..system import SlamSystem
+    from ..tracking.robust import WeightKind
+
+    calib = camera.load(args.calibration)
+    track_levels = (
+        tuple(int(s) for s in args.track_levels.split(","))
+        if args.track_levels else tuple(range(args.levels - 2, -1, -1))
+    )
+    config = SlamConfig(
+        tracker=TrackerConfig(
+            pyramid_levels=args.levels, track_levels=track_levels,
+            max_iterations=args.gn_iters, weight_kind=WeightKind(args.weights),
+            mono_depth=args.mono_depth, num_points=args.num_points,
+            track_mode=args.track_mode, affine_brightness=args.affine,
+        ),
+        features=FeatureConfig(per_level=args.kp_per_level),
+        keyframes=KeyframeConfig(min_gap=args.kf_min_gap, max_gap=args.kf_max_gap),
+        profile=args.profile,
+        trajectory_csv=args.trajectory_out,
+    )
+    try:
+        system = SlamSystem(calib, config, device=device)
+    except NotImplementedError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    seq = (open_euroc(args.directory, start=args.start) if args.euroc
+           else open_directory(args.directory, start=args.start))
+
+    if args.offline:
+        return run_offline(args, system, config, seq)
+
+    print("live loop: synchronous process_frame (the pipelined loop is not "
+          "ported yet, ROADMAP slice 3, item 12)", file=sys.stderr)
+    n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
+    # Steady state excludes the first frames (kernel build, allocator warm-up).
+    warmup = min(15, max(0, n - 10))
+    t0 = time.perf_counter()
+    t_warm = None
+    prefetcher = FramePrefetcher(seq)
+    try:
+        for i, (img, _) in prefetcher:
+            if i >= n:
+                break
+            if i == warmup:
+                t_warm = time.perf_counter()
+            state = system.process_frame(
+                img, timestamp=seq.timestamps[i] if seq.timestamps is not None else None,
+            )
+            if i % 50 == 0:
+                print(f"frame {i}: inliers={state.tracked_inliers} "
+                      f"err={state.track_error:.3f} kf={state.is_keyframe}",
+                      file=sys.stderr)
+    finally:
+        prefetcher.close()
+    dt = time.perf_counter() - t0
+    print(f"tracked {n} frames in {dt:.2f}s ({n / dt:.1f} fps)", file=sys.stderr)
+    if t_warm is not None and n - warmup >= 5:
+        dtw = time.perf_counter() - t_warm
+        nw = n - warmup
+        print(f"steady state: {nw} frames in {dtw:.2f}s ({nw / dtw:.1f} fps warm, "
+              f"first {warmup} frames excluded)", file=sys.stderr)
+    if args.profile:
+        print(system.timers.report(), file=sys.stderr)
+    ts, poses = system.export_trajectory(args.trajectory_out)
+    _report_ate(ts, poses, args)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

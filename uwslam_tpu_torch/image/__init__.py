@@ -3,6 +3,7 @@ from .pyramid import (
     PYRAMID_LEVELS,
     FramePyramid,
     bilinear_sample,
+    build_pyramid,
     build_pyramid_batched,
     downsample2x,
     scharr_gradients,
@@ -12,6 +13,7 @@ __all__ = [
     "PYRAMID_LEVELS",
     "FramePyramid",
     "bilinear_sample",
+    "build_pyramid",
     "build_pyramid_batched",
     "downsample2x",
     "scharr_gradients",

@@ -64,6 +64,13 @@ def build_pyramid_batched(
     )
 
 
+def build_pyramid(image: torch.Tensor, levels: int = PYRAMID_LEVELS) -> FramePyramid:
+    """One frame (H, W) f32 -> FramePyramid whose levels are batches of one,
+    (1, H_l, W_l): `build_pyramid_batched` at B = 1, so kernel K1 runs on
+    every live frame and the tracker takes the pyramid as it is."""
+    return build_pyramid_batched(image[None], levels=levels)
+
+
 def bilinear_sample(image: torch.Tensor, uv: torch.Tensor, fill: float = 0.0):
     """Bilinear interpolation of image (H, W) at uv (..., 2) -> (values (...),
     valid (...)); `fill` where (u, v) is outside [0, W-1] x [0, H-1]."""

@@ -26,7 +26,10 @@ def camera_from_jax(cam) -> PinholeCamera:
     The port's camera has no distortion; a distorted camera is refused."""
     for name in ("k1", "k2", "p1", "p2"):
         if abs(float(getattr(cam, name, 0.0))) > 1e-12:
-            raise ValueError(f"camera has distortion ({name}); not ported")
+            raise ValueError(
+                f"camera has distortion ({name}); lens distortion is not ported "
+                "(ROADMAP slice 5, item 15)"
+            )
     return PinholeCamera(
         fx=float(cam.fx), fy=float(cam.fy), cx=float(cam.cx), cy=float(cam.cy),
         width=int(cam.width), height=int(cam.height),
@@ -56,6 +59,15 @@ def points_from_numpy(pts, device="cpu") -> TrackPoints:
         gx0=opt(pts.gx0),
         gy0=opt(pts.gy0),
     )
+
+
+def descriptor_projection_from_numpy(m, device="cpu") -> torch.Tensor:
+    """The (64, 64) descriptor projection as the port's `describe` takes it
+    (`proj=`), from the JAX package's `_projection_matrix(64, 64)`."""
+    t = _tensor(m, device)
+    if tuple(t.shape) != (64, 64):
+        raise ValueError(f"descriptor projection must be (64, 64), got {tuple(t.shape)}")
+    return t
 
 
 def texture_from_numpy(freqs, phases, amps) -> Texture:

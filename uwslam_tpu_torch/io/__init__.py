@@ -1,4 +1,38 @@
-"""Trajectory evaluation."""
-from .trajectory import ate_rmse, umeyama_alignment
+"""Dataset readers, trajectory I/O and evaluation."""
+from .dataset import (
+    FramePrefetcher,
+    Sequence,
+    list_images,
+    open_directory,
+    open_euroc,
+    open_tum,
+    read_pgm,
+)
+from .trajectory import (
+    associate,
+    ate_rmse,
+    poses_from_tum_rows,
+    read_groundtruth_euroc,
+    read_groundtruth_tum,
+    read_trajectory_tum,
+    umeyama_alignment,
+    write_trajectory_tum,
+)
 
-__all__ = ["ate_rmse", "umeyama_alignment"]
+__all__ = [
+    "FramePrefetcher",
+    "Sequence",
+    "associate",
+    "ate_rmse",
+    "list_images",
+    "open_directory",
+    "open_euroc",
+    "open_tum",
+    "poses_from_tum_rows",
+    "read_groundtruth_euroc",
+    "read_groundtruth_tum",
+    "read_pgm",
+    "read_trajectory_tum",
+    "umeyama_alignment",
+    "write_trajectory_tum",
+]

@@ -73,3 +73,12 @@ def normalize(T: torch.Tensor) -> torch.Tensor:
 def right_update(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """Update T <- normalize(T * exp(delta))."""
     return normalize(compose(T, exp(delta)))
+
+
+def to_quaternion_translation(T: torch.Tensor):
+    """-> ([w, x, y, z] quaternion, translation): the trajectory file format."""
+    return so3.to_quaternion(rotation(T)), translation(T)
+
+
+def from_quaternion_translation(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return from_rotation_translation(so3.from_quaternion(q), t)

@@ -177,3 +177,54 @@ def left_jacobian_inverse(w: torch.Tensor) -> torch.Tensor:
         cot_num / torch.where(small, 1.0, theta2),
     )
     return _eye3(w) - 0.5 * W + cot_term[..., None, None] * W2
+
+
+def from_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [w, x, y, z] (..., 4) -> rotation matrix (..., 3, 3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack(
+                [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                dim=-1,
+            ),
+            torch.stack(
+                [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                dim=-1,
+            ),
+            torch.stack(
+                [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                dim=-1,
+            ),
+        ],
+        dim=-2,
+    )
+
+
+def to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion [w, x, y, z] (..., 4),
+    w >= 0: the four Shepperd candidates, the one of the largest pivot kept."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def cand(t, a, b, c, d):
+        inv = 0.5 / torch.sqrt(torch.clamp(t, min=1e-12))
+        return torch.stack([a * inv, b * inv, c * inv, d * inv], dim=-1)
+
+    tw = 1.0 + tr
+    tx = 1.0 + m00 - m11 - m22
+    ty = 1.0 - m00 + m11 - m22
+    tz = 1.0 - m00 - m11 + m22
+    cands = torch.stack([
+        cand(tw, tw, m21 - m12, m02 - m20, m10 - m01),
+        cand(tx, m21 - m12, tx, m01 + m10, m02 + m20),
+        cand(ty, m02 - m20, m01 + m10, ty, m12 + m21),
+        cand(tz, m10 - m01, m02 + m20, m12 + m21, tz),
+    ], dim=-2)                                        # (..., 4 candidates, 4)
+    pivot = torch.argmax(torch.stack([tw, tx, ty, tz], dim=-1), dim=-1)
+    q = torch.gather(cands, -2, pivot[..., None, None].expand(*pivot.shape, 1, 4))[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)

@@ -1,10 +1,10 @@
 """Batched sequence tracking: every adjacent frame pair as one LM problem.
 
-Counterpart of `uwslam_tpu.tracking.sequence.track_sequence_batched` (IC
-mode, monocular depth) and `compose_trajectory`. The whole chunk runs as one
-stream of device launches: pyramid (kernel K1 per level), per-frame point
-selection, then coarse-to-fine IC tracking of all pairs at once (kernels K3
-and K2).
+Counterpart of `uwslam_tpu.tracking.sequence.track_sequence_batched`
+(monocular depth, FC or IC, optional affine brightness) and
+`compose_trajectory`. The whole chunk runs as one stream of device launches:
+pyramid (kernel K1 per level), per-frame point selection, then
+coarse-to-fine tracking of all pairs at once (kernels K3 and K2).
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from torch import nn
 from ..camera.model import PinholeCamera
 from ..image.pyramid import build_pyramid_batched
 from ..lie import se3
-from .photometric import track
+from .photometric import MODES, track
 from .points import topk_gradient_points
 
 
@@ -28,6 +28,7 @@ def track_sequence_batched(
     max_iters: int | tuple[int, ...] = 10,
     block: int = 8,
     mode: str = "ic",
+    affine: bool = False,
 ):
     """Track frames (N, H, W) f32 -> (T_rel (N-1, 4, 4), inliers (N-1,),
     errors (N-1,)); T_rel[i] maps frame-i coordinates to frame-i+1
@@ -40,7 +41,7 @@ def track_sequence_batched(
     ref, tgt = slice(None, -1), slice(1, None)
     out = track(
         pyrs.select(ref), pyrs.select(tgt), pts.select(ref), cam,
-        levels=track_levels, max_iters=max_iters, mode=mode,
+        levels=track_levels, max_iters=max_iters, mode=mode, affine=affine,
     )
     return out.T, out.inliers, out.error
 
@@ -57,24 +58,24 @@ class SequenceTracker(nn.Module):
         num_points: int = 2048,
         max_iters: int | tuple[int, ...] = 10,
         mode: str = "ic",
+        affine: bool = False,
     ):
         super().__init__()
-        if mode != "ic":
-            raise NotImplementedError(
-                "only inverse-compositional tracking (mode='ic') is ported"
-            )
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.cam = cam
         self.levels = levels
         self.track_levels = tuple(track_levels)
         self.num_points = num_points
         self.max_iters = max_iters
         self.mode = mode
+        self.affine = affine
 
     def forward(self, frames: torch.Tensor, mono_z: float = 1.0):
         return track_sequence_batched(
             frames, self.cam, mono_z=mono_z, levels=self.levels,
             track_levels=self.track_levels, num_points=self.num_points,
-            max_iters=self.max_iters, mode=self.mode,
+            max_iters=self.max_iters, mode=self.mode, affine=self.affine,
         )
 
 
