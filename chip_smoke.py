@@ -9,9 +9,14 @@ fails. Phases, one line each:
 2. Build the kernels from uwslam_tpu_torch/csrc with nvcc (sm_90a).
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    of the main path: K1 Scharr on all 5 levels of 96 x 480 x 640; K2
-   warp+sample with 95 pairs, 1 channel, 2048 points at every track level,
-   including points behind the camera and on the exact right and bottom
-   edges; K3 sample with 95 pairs, 3 channels, 2048 points at levels 3, 2, 1.
+   warp+sample with 95 pairs, 2048 points at every track level (1 channel
+   planar, and 3 channels as texels), including points behind the camera
+   and on the exact right and bottom edges; K3 sample with 95 pairs, 3
+   channels (planar and texels), 2048 points at levels 3, 2, 1, its interior
+   also against `grid_sample`; the fused LM evaluation `lm_evaluate` (IC,
+   Huber and none) at every track level on the same points: valid counts
+   equal, every sum within LM_SUM_RTOL of the pair's scale, two launches
+   bit-equal. K1-K3 must equal their plain versions bit for bit.
 4. The main path: the repo's bench.py sequence (96 frames of 640 x 480)
    rendered on the card and tracked by SequenceTracker in IC mode. Every
    kernel must have launched; the trajectory's ATE must be within 1 mm; the
@@ -22,10 +27,10 @@ fails. Phases, one line each:
    events where a profile, taken up to three times, records no kernel) and
    in wall time per call (CUDA events).
 3b. The live path's kernel shapes at B = 1: K1 on each level of one frame
-   (480 x 640, 240 x 320, 120 x 160), K2 with C = 3 (intensity and both
-   gradients, FC) at levels 1 and 0, and K3 with C = 1 at the descriptor
-   shape (768 keypoints x 64 taps per level), each against its plain
-   version (K2 and K3 with equal masks).
+   (480 x 640, 240 x 320, 120 x 160), K2 with C = 1 and with C = 3 texels
+   (intensity and both gradients) and `lm_evaluate` (FC, on the texels) at
+   levels 1 and 0, and K3 with C = 1 at the descriptor shape (768 keypoints
+   x 64 taps per level), each against its plain version as in phase 3.
 6. The live path (configuration 1): the same 96 frames through
    `SlamSystem.process_frame` (FC, 3 levels, track levels (1, 0), 10 LM
    iterations, 2048 points, keyframes, relocalization on). Every frame must
@@ -49,7 +54,9 @@ fails. Phases, one line each:
    profiler over 5 frames.
 
 Then a JSON line of per-kernel results (launches on the offline and the
-live path), the card's name and power limit, and, last,
+live path; time, plain version's time, the card's bound for the same bytes
+and operations, and a library call's time where one computes the same
+function), the card's name and power limit, and, last,
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -67,7 +74,21 @@ import numpy as np
 import torch
 
 K1_ATOL = 1e-4       # f32 gradients of [0, 255] images
-SAMPLE_ATOL = 1e-3   # K2/K3 samples of [0, 255] intensities; masks equal
+SAMPLE_ATOL = 0.0    # K2/K3, planar and texels: bit-equal, masks equal
+# lm_evaluate against its plain version: both sum ~2048 f32 terms per pair,
+# the kernel in a tree, the plain version as bmm does, and the kernel's
+# Jacobian arithmetic is contracted to FMAs. Each sum is held to this
+# fraction of the pair's scale for it (H: its largest entry; b: its
+# Cauchy-Schwarz bound sqrt(2 max|H| cost); cost and sum |r|: themselves).
+LM_SUM_RTOL = 2e-5
+# K3's interior against grid_sample(align_corners=True), which goes through
+# normalized coordinates: u is recovered to ~W eps = 4e-5 px, times a
+# gradient of up to ~100 gray levels per pixel.
+GRID_SAMPLE_ATOL = 2e-2
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
+F32_FLOP_PER_S = 67e12       # H100 SXM, published, outside the tensor cores
+MAX_LAUNCHES_PER_CHUNK = 12295   # the unfused LM loop's count; must fall
+MAX_LAUNCHES_PER_FRAME = 9403
 T_REL_ATOL = 1e-3    # se3.log of the card's vs the CPU's relative poses
 ATE_MAX = 1e-3       # m; the JAX package's f32 CPU run gives 0.000278 m
 TIMING_REPS = 20
@@ -105,7 +126,60 @@ def kernels_table():
         {"name": "bilinear_sample", "wrapper": ops.cuda_bilinear_sample,
          "source": "uwslam_tpu_torch/csrc/warp_sample.cu",
          "replaces": "uwslam_tpu/ops/pallas_sample.py:29"},
+        {"name": "lm_evaluate", "wrapper": ops.lm_evaluate,
+         "source": "uwslam_tpu_torch/csrc/lm_evaluate.cu",
+         "replaces": "uwslam_tpu/ops/pallas_track.py:40"},
     ]
+
+
+# Operations per output element, counted from the kernels' sources: K1 per
+# pixel; K2, K3 per valid point (warp 18, projection 6, taps 10, blend 13 per
+# channel); lm_evaluate per valid point (K2's, the residual, weight and cost
+# 11, w J 6, 21 + 6 multiply-adds of the sums 54, 3 more sums; FC: the
+# Jacobian 40).
+K1_FLOPS = 25
+WARP_FLOPS, TAPS_FLOPS, BLEND_FLOPS = 24, 10, 13
+LM_FLOPS_IC = WARP_FLOPS + TAPS_FLOPS + BLEND_FLOPS + 11 + 6 + 54 + 3
+LM_FLOPS_FC = LM_FLOPS_IC + 2 * BLEND_FLOPS + 40
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least ms the card could take: the larger of bytes over its memory
+    rate and operations over its f32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes}
+
+
+def bound_scharr(images) -> dict:
+    """One plane read, three written."""
+    return bound(images.numel() * 4 * 4, images.numel() * K1_FLOPS)
+
+
+def bound_sampler(ok, C: int, point_bytes: int) -> dict:
+    """K2 (12 B of point, 64 B of pose per pair) or K3 (8 B of uv): each
+    point and its validity byte once, and for this run's valid points the
+    four taps and the sample of every channel."""
+    B, N = ok.shape
+    n_ok = int(ok.sum())
+    n_bytes = B * N * (point_bytes + 1) + n_ok * (16 * C + 4 * C)
+    if point_bytes == 12:
+        n_bytes += B * 64
+    flops = n_ok * ((WARP_FLOPS if point_bytes == 12 else 0) + TAPS_FLOPS + BLEND_FLOPS * C)
+    return bound(n_bytes, flops)
+
+
+def bound_lm_evaluate(pts_valid, ok, fc: bool) -> dict:
+    """Per point 12 B and the validity byte; per reference-valid point the
+    projection decides; per valid point the reference intensity (4 B), the
+    taps (IC 16 B, FC 48 B of the texels' three channels) and in IC the
+    Jacobian row (24 B); per pair the pose (64 B), sigma (4 B) and the 45
+    sums written. IC with every point valid: 57 B per point."""
+    B, N = ok.shape
+    n_ok = int((pts_valid & ok).sum())
+    n_bytes = B * N * 13 + n_ok * (4 + (48 if fc else 16 + 24)) + B * (64 + 4 + 45 * 4)
+    return bound(n_bytes, n_ok * (LM_FLOPS_FC if fc else LM_FLOPS_IC))
 
 
 def exact_coordinate(f: float, c: float, target: int) -> tuple[float, float]:
@@ -155,14 +229,92 @@ def compare(kernel_out, plain_out, atol: float, what: str) -> float:
     return err
 
 
+def lm_sums_error(got, want) -> float:
+    """Largest error of a kernel's (B, 48) sums against the plain version's,
+    as a fraction of each pair's scale for that sum (see LM_SUM_RTOL). Valid
+    counts must be equal, the kernel's H symmetric and its padding zero."""
+    from uwslam_tpu_torch.ops.cuda_track import LM_B, LM_COST, LM_COUNT, LM_H
+
+    if not torch.equal(got[:, LM_COUNT], want[:, LM_COUNT]):
+        raise AssertionError("lm_evaluate: valid counts differ")
+    H = got[:, LM_H].view(-1, 6, 6)
+    if not torch.equal(H, H.transpose(1, 2)) or bool(got[:, 45:].any()):
+        raise AssertionError("lm_evaluate: H is not symmetric or the padding not zero")
+    got, want = got.double(), want.double()
+    h_scale = want[:, LM_H].abs().amax(-1, keepdim=True)
+    b_scale = torch.sqrt(2.0 * h_scale * want[:, LM_COST, None])
+    worst = 0.0
+    for sl, scale in ((LM_H, h_scale), (LM_B, b_scale), (slice(42, 44), want[:, 42:44].abs())):
+        rel = (got[:, sl] - want[:, sl]).abs() / scale.clamp(min=1e-30)
+        worst = max(worst, float(rel.max()))
+    return worst
+
+
+def check_lm_evaluate(target, pts_l, T, cam_l, what: str, J_ref=None) -> float:
+    """`lm_evaluate` (Huber and none) against its plain version at poses T:
+    counts equal, sums within LM_SUM_RTOL, a second launch bit-equal. The
+    scale is the MAD of the residuals at T, as on the main path."""
+    from uwslam_tpu_torch import ops
+    from uwslam_tpu_torch.ops.cuda_track import LM_COUNT
+    from uwslam_tpu_torch.tracking.robust import WeightKind, mad_sigma
+
+    fc = J_ref is None
+    vals, ok = ops.warp_and_sample_plain(target if fc else target[:, None], pts_l.p3d, T,
+                                         cam_l, texels=fc)
+    valid = pts_l.valid & ok
+    sigma = mad_sigma(torch.where(valid, vals[:, 0] - pts_l.intensity, 0.0), valid)
+    worst = 0.0
+    for kind in (WeightKind.HUBER, WeightKind.NONE):
+        args = (pts_l.intensity, pts_l.valid, sigma, cam_l, kind, J_ref)
+        evaluator = ops.LMEvaluator(target, pts_l.p3d, *args)
+        first = evaluator(T).clone()
+        if not torch.equal(first, evaluator(T)):
+            raise AssertionError(f"{what} {kind.value}: two launches differ")
+        plain = ops.lm_evaluate_plain(target, pts_l.p3d, T, *args)
+        if not int(plain[:, LM_COUNT].max()) > 0:
+            raise AssertionError(f"{what}: no valid point")
+        err = lm_sums_error(first, plain)
+        if not err <= LM_SUM_RTOL:
+            raise AssertionError(f"{what} {kind.value}: sums differ by {err} of their "
+                                 f"scale > {LM_SUM_RTOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def grid_sample_call(stack, uv):
+    """`F.grid_sample` set up for K3's function on (B, C, H, W) at uv
+    (B, N, 2): the normalized grid is built here, outside any timing."""
+    H, W = stack.shape[-2:]
+    scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)], device=uv.device)
+    grid = (uv * scale - 1.0)[:, None]                       # (B, 1, N, 2)
+    return lambda: torch.nn.functional.grid_sample(
+        stack, grid, mode="bilinear", padding_mode="zeros", align_corners=True)[:, :, 0]
+
+
+def check_grid_sample(kernel_out, stack, uv, what: str) -> float:
+    """K3 against grid_sample where the two compute the same function: at
+    valid points off the last row and column."""
+    vals, ok = kernel_out
+    H, W = stack.shape[-2:]
+    inner = (ok & (uv[..., 0] < W - 1) & (uv[..., 1] < H - 1))[:, None]
+    diff = torch.where(inner, vals - grid_sample_call(stack, uv)(), 0.0)
+    err = float(diff.abs().max())
+    if not err <= GRID_SAMPLE_ATOL:
+        raise AssertionError(f"{what}: differs from grid_sample by {err} > {GRID_SAMPLE_ATOL}")
+    return err
+
+
 def phase_parity(pyr, pts, cam, track_levels, seed: int = 0):
     """Kernel vs plain version on the card at the main path's shapes.
     Returns {kernel name: max abs error}."""
     from uwslam_tpu_torch import ops
     from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.tracking.photometric import ic_jacobian
+    from uwslam_tpu_torch.tracking.points import TrackPoints
 
     dev = pyr.images[0].device
-    err = {"scharr": 0.0, "warp_sample": 0.0, "bilinear_sample": 0.0}
+    err = {"scharr": 0.0, "warp_sample": 0.0, "bilinear_sample": 0.0,
+           "lm_evaluate": 0.0, "bilinear_sample_vs_grid_sample": 0.0}
     for lvl, img in enumerate(pyr.images):
         k = ops.scharr_gradients_batched(img)
         p = ops.scharr_plain(img)
@@ -190,25 +342,44 @@ def phase_parity(pyr, pts, cam, track_levels, seed: int = 0):
         err["warp_sample"] = max(
             err["warp_sample"], compare(k, p, SAMPLE_ATOL, f"warp_sample level {lvl}")
         )
-        if lvl == 0:
-            continue
+        tgt_planes = (pyr.images[lvl][1:], pyr.grad_x[lvl][1:], pyr.grad_y[lvl][1:])
+        k = ops.warp_and_sample(ops.pack_texels(*tgt_planes), p3d, T, cam_l, texels=True)
+        p = ops.warp_and_sample_plain(torch.stack(tgt_planes, dim=1), p3d, T, cam_l)
+        err["warp_sample"] = max(err["warp_sample"], compare(
+            k, p, SAMPLE_ATOL, f"warp_sample texels level {lvl}"))
+
+        # The reference pass (K3; level 0 carries its values from selection).
         uv = pts.uv[:-1] * (1.0 / (1 << lvl))
-        W, H = cam_l.width, cam_l.height
-        edges = torch.tensor(
-            [[W - 1, 1.5], [W - 1, H - 1], [2.25, H - 1], [0.0, 0.0],
-             [W - 1 + 1e-3, 3.0], [-1e-3, 3.0], [5.0, H - 1 + 1e-3],
-             [float("nan"), 2.0]], device=dev,
-        )
-        uv[: B // 4, : len(edges)] = edges
-        stack = torch.stack(
-            [pyr.images[lvl][:-1], pyr.grad_x[lvl][:-1], pyr.grad_y[lvl][:-1]], dim=1
-        )
-        k = ops.cuda_bilinear_sample(stack, uv)
-        p = ops.bilinear_sample_plain(stack, uv)
-        err["bilinear_sample"] = max(
-            err["bilinear_sample"],
-            compare(k, p, SAMPLE_ATOL, f"bilinear_sample level {lvl}"),
-        )
+        ref_planes = (pyr.images[lvl][:-1], pyr.grad_x[lvl][:-1], pyr.grad_y[lvl][:-1])
+        stack = torch.stack(ref_planes, dim=1)
+        if lvl == 0:
+            ref, ref_ok = (pts.intensity[:-1], pts.gx0[:-1], pts.gy0[:-1]), pts.valid[:-1]
+        else:
+            W, H = cam_l.width, cam_l.height
+            edges = torch.tensor(
+                [[W - 1, 1.5], [W - 1, H - 1], [2.25, H - 1], [0.0, 0.0],
+                 [W - 1 + 1e-3, 3.0], [-1e-3, 3.0], [5.0, H - 1 + 1e-3],
+                 [float("nan"), 2.0]], device=dev,
+            )
+            uv_edge = uv.clone()
+            uv_edge[: B // 4, : len(edges)] = edges
+            p = ops.bilinear_sample_plain(stack, uv_edge)
+            for name, k in (
+                ("planar", ops.cuda_bilinear_sample(stack, uv_edge)),
+                ("texels", ops.cuda_bilinear_sample(ops.pack_texels(*ref_planes), uv_edge,
+                                                    texels=True)),
+            ):
+                err["bilinear_sample"] = max(err["bilinear_sample"], compare(
+                    k, p, SAMPLE_ATOL, f"bilinear_sample {name} level {lvl}"))
+            err["bilinear_sample_vs_grid_sample"] = max(
+                err["bilinear_sample_vs_grid_sample"],
+                check_grid_sample(k, stack, uv_edge, f"bilinear_sample level {lvl}"))
+            vals, ref_ok = ops.cuda_bilinear_sample(stack, uv)
+            ref, ref_ok = (vals[:, 0], vals[:, 1], vals[:, 2]), pts.valid[:-1] & ref_ok
+        pts_l = TrackPoints(uv=uv, p3d=p3d, intensity=ref[0], valid=ref_ok)
+        err["lm_evaluate"] = max(err["lm_evaluate"], check_lm_evaluate(
+            pyr.images[lvl][1:], pts_l, T, cam_l, f"lm_evaluate IC level {lvl}",
+            J_ref=ic_jacobian(pts_l, ref[1], ref[2], cam_l)))
     return err
 
 
@@ -317,33 +488,68 @@ def turns(kernel, plain) -> dict:
             **({} if timers == ["profiler"] else {"timers": timers})}
 
 
-def phase_timing(pyr, pts, cam, T_rel):
-    """Kernel vs plain version at the largest shape each has on the main
-    path: device ms per call (profiler) and wall ms per call (CUDA events),
-    in turns kernel, plain, plain, kernel."""
-    from uwslam_tpu_torch import ops
-
-    img0 = pyr.images[0]
-    tgt0 = pyr.images[0][1:, None]
-    p3d = pts.p3d[:-1]
-    stack1 = torch.stack(
-        [pyr.images[1][:-1], pyr.grad_x[1][:-1], pyr.grad_y[1][:-1]], dim=1
-    )
-    uv1 = pts.uv[:-1] * 0.5
-    pairs = {
-        "scharr": (lambda: ops.scharr_gradients_batched(img0),
-                   lambda: ops.scharr_plain(img0)),
-        "warp_sample": (lambda: ops.warp_and_sample(tgt0, p3d, T_rel, cam),
-                        lambda: ops.warp_and_sample_plain(tgt0, p3d, T_rel, cam)),
-        "bilinear_sample": (lambda: ops.cuda_bilinear_sample(stack1, uv1),
-                            lambda: ops.bilinear_sample_plain(stack1, uv1)),
-    }
+def time_pairs(pairs: dict, bounds: dict, library: dict) -> dict:
+    """For each kernel: device ms of kernel and plain version (`turns`), wall
+    ms per call of both (CUDA events around back-to-back calls: the host's
+    dispatch where that is longer), its bound, and the library call's device
+    ms where there is one."""
     out = {}
     for name, (kernel, plain) in pairs.items():
         wk1, wp1, wp2, wk2 = (wall_ms(f) for f in (kernel, plain, plain, kernel))
-        out[name] = {**turns(kernel, plain),
-                     "wall_ms": (wk1 + wk2) / 2, "plain_wall_ms": (wp1 + wp2) / 2}
+        out[name] = {**turns(kernel, plain), "wall_ms": (wk1 + wk2) / 2,
+                     "plain_wall_ms": (wp1 + wp2) / 2, **bounds[name],
+                     "library_ms": call_ms(library[name])[0] if name in library else None}
     return out
+
+
+def phase_timing(pyr, pts, cam, T_rel):
+    """Kernel vs plain version at the largest shape each has on the offline
+    path (level 0; K3 level 1), with each kernel's bound from these inputs.
+    `bilinear_sample` is the texel path the chunk runs, `bilinear_sample_planar`
+    the same sample from three planes; both beside `grid_sample`."""
+    from uwslam_tpu_torch import ops
+    from uwslam_tpu_torch.tracking.photometric import ic_jacobian
+    from uwslam_tpu_torch.tracking.points import TrackPoints
+    from uwslam_tpu_torch.tracking.robust import WeightKind, mad_sigma
+
+    img0 = pyr.images[0]
+    tgt0 = pyr.images[0][1:, None]
+    ref = pts.select(slice(None, -1))
+    p3d = ref.p3d
+    planes1 = (pyr.images[1][:-1], pyr.grad_x[1][:-1], pyr.grad_y[1][:-1])
+    stack1, texels1 = torch.stack(planes1, dim=1), ops.pack_texels(*planes1)
+    uv1 = ref.uv * 0.5
+    vals, ok = ops.warp_and_sample(tgt0, p3d, T_rel, cam)
+    valid = ref.valid & ok
+    sigma = mad_sigma(torch.where(valid, vals[:, 0] - ref.intensity, 0.0), valid)
+    pts0 = TrackPoints(uv=ref.uv, p3d=p3d, intensity=ref.intensity, valid=ref.valid)
+    lm_args = (ref.intensity, ref.valid, sigma, cam, WeightKind.HUBER,
+               ic_jacobian(pts0, ref.gx0, ref.gy0, cam))
+    evaluator = ops.LMEvaluator(tgt0[:, 0], p3d, *lm_args)
+    sampler = ops.WarpSampler(tgt0, p3d, cam)
+    pairs = {
+        "scharr": (lambda: ops.scharr_gradients_batched(img0),
+                   lambda: ops.scharr_plain(img0)),
+        "warp_sample": (lambda: sampler(T_rel),
+                        lambda: ops.warp_and_sample_plain(tgt0, p3d, T_rel, cam)),
+        "bilinear_sample": (lambda: ops.cuda_bilinear_sample(texels1, uv1, texels=True),
+                            lambda: ops.bilinear_sample_texels_plain(texels1, uv1)),
+        "bilinear_sample_planar": (lambda: ops.cuda_bilinear_sample(stack1, uv1),
+                                   lambda: ops.bilinear_sample_plain(stack1, uv1)),
+        "lm_evaluate": (lambda: evaluator(T_rel),
+                        lambda: ops.lm_evaluate_plain(tgt0[:, 0], p3d, T_rel, *lm_args)),
+    }
+    ok1 = ops.cuda_bilinear_sample(stack1, uv1)[1]
+    bounds = {
+        "scharr": bound_scharr(img0),
+        "warp_sample": bound_sampler(ok, 1, 12),
+        "bilinear_sample": bound_sampler(ok1, 3, 8),
+        "bilinear_sample_planar": bound_sampler(ok1, 3, 8),
+        "lm_evaluate": bound_lm_evaluate(ref.valid, ok, fc=False),
+    }
+    grid = grid_sample_call(stack1, uv1)
+    return time_pairs(pairs, bounds, {"bilinear_sample": grid,
+                                      "bilinear_sample_planar": grid})
 
 
 def live_config():
@@ -401,13 +607,15 @@ def live_ate(system, poses, keep=None) -> float:
 
 def phase_parity_live(frames, cam, seed: int = 1):
     """Kernels at the live path's B = 1 shapes against their plain versions.
-    Returns ({kernel: max abs error}, {kernel: (kernel, plain) callables at
-    the largest live shape})."""
+    Returns ({kernel: max abs error}, what `time_pairs` takes: {kernel:
+    (kernel, plain) callables at the largest live shape}, their bounds and
+    the library calls)."""
     from uwslam_tpu_torch import ops
     from uwslam_tpu_torch.features import detect_multiscale
     from uwslam_tpu_torch.image.pyramid import build_pyramid
     from uwslam_tpu_torch.lie import se3
-    from uwslam_tpu_torch.tracking.points import topk_gradient_points
+    from uwslam_tpu_torch.tracking.points import TrackPoints, topk_gradient_points
+    from uwslam_tpu_torch.tracking.robust import WeightKind, mad_sigma
 
     cfg = live_config().tracker
     dev = frames.device
@@ -417,8 +625,8 @@ def phase_parity_live(frames, cam, seed: int = 1):
                                num_points=cfg.num_points, mono_z=cfg.mono_depth)
     gen = torch.Generator().manual_seed(seed)
     T_move = se3.exp(0.02 * torch.randn(1, 6, generator=gen)).to(dev)
-    err = {"scharr": 0.0, "warp_sample": 0.0, "bilinear_sample": 0.0}
-    calls = {}
+    err = {"scharr": 0.0, "warp_sample": 0.0, "bilinear_sample": 0.0, "lm_evaluate": 0.0}
+    calls, bounds = {}, {}
     for lvl, img in enumerate(ref.images):                  # (1, H_l, W_l)
         k = ops.scharr_gradients_batched(img)
         p = ops.scharr_plain(img)
@@ -429,20 +637,45 @@ def phase_parity_live(frames, cam, seed: int = 1):
             err["scharr"] = max(err["scharr"], e)
     for lvl in cfg.track_levels:
         cam_l = cam.scaled(lvl)
-        stacked = torch.stack([tgt.images[lvl], tgt.grad_x[lvl], tgt.grad_y[lvl]],
-                              dim=1).contiguous()
+        planes = (tgt.images[lvl], tgt.grad_x[lvl], tgt.grad_y[lvl])
+        stacked, texels = torch.stack(planes, dim=1), ops.pack_texels(*planes)
+        plane = tgt.images[lvl][:, None]
         p3d_edge = pts.p3d.clone()
         p3d_edge[0, :64] = edge_points(cam_l, 64).to(dev)
+        ref_int, ref_ok = ops.cuda_bilinear_sample(ref.images[lvl][:, None],
+                                                   pts.uv * (1.0 / (1 << lvl)))
         for T, p3d in ((torch.eye(4, device=dev)[None], p3d_edge), (T_move, pts.p3d)):
-            k = ops.warp_and_sample(stacked, p3d, T, cam_l)
             p = ops.warp_and_sample_plain(stacked, p3d, T, cam_l)
+            k = ops.warp_and_sample(texels, p3d, T, cam_l, texels=True)
             err["warp_sample"] = max(err["warp_sample"], compare(
-                k, p, SAMPLE_ATOL, f"warp_sample B=1 C=3 level {lvl}"))
+                k, p, SAMPLE_ATOL, f"warp_sample B=1 texels level {lvl}"))
+            k = ops.warp_and_sample(plane, p3d, T, cam_l)
+            err["warp_sample"] = max(err["warp_sample"], compare(
+                k, (p[0][:, :1], p[1]), SAMPLE_ATOL, f"warp_sample B=1 C=1 level {lvl}"))
+            pts_l = TrackPoints(uv=pts.uv, p3d=p3d, intensity=ref_int[:, 0],
+                                valid=pts.valid & ref_ok)
+            err["lm_evaluate"] = max(err["lm_evaluate"], check_lm_evaluate(
+                texels, pts_l, T, cam_l, f"lm_evaluate FC B=1 level {lvl}"))
         if lvl == 0:
+            q = pts.p3d
+            sampler = ops.WarpSampler(plane, q, cam_l)
+            ok = p[1]
+            sigma = mad_sigma(torch.where(pts_l.valid & ok, p[0][:, 0] - pts_l.intensity, 0.0),
+                              pts_l.valid & ok)
+            lm_args = (pts_l.intensity, pts_l.valid, sigma, cam_l, WeightKind.HUBER)
+            evaluator = ops.LMEvaluator(texels, q, *lm_args)
             calls["warp_sample"] = (
-                lambda s=stacked, q=pts.p3d, c=cam_l: ops.warp_and_sample(s, q, T_move, c),
-                lambda s=stacked, q=pts.p3d, c=cam_l: ops.warp_and_sample_plain(s, q, T_move, c),
-            )
+                lambda: sampler(T_move),
+                lambda c=cam_l: ops.warp_and_sample_plain(plane, q, T_move, c))
+            calls["warp_sample_texels"] = (
+                lambda c=cam_l: ops.warp_and_sample(texels, q, T_move, c, texels=True),
+                lambda c=cam_l: ops.warp_and_sample_plain(texels, q, T_move, c, texels=True))
+            calls["lm_evaluate"] = (
+                lambda: evaluator(T_move),
+                lambda: ops.lm_evaluate_plain(texels, q, T_move, *lm_args))
+            bounds["warp_sample"] = bound_sampler(ok, 1, 12)
+            bounds["warp_sample_texels"] = bound_sampler(ok, 3, 12)
+            bounds["lm_evaluate"] = bound_lm_evaluate(pts_l.valid, ok, fc=True)
     fcfg = live_config().features
     kps = detect_multiscale([g[0] for g in ref.grad_x], [g[0] for g in ref.grad_y],
                             per_level=fcfg.per_level, levels=fcfg.detect_levels)
@@ -462,9 +695,12 @@ def phase_parity_live(frames, cam, seed: int = 1):
                 lambda i=image, q=uv: ops.cuda_bilinear_sample(i, q),
                 lambda i=image, q=uv: ops.bilinear_sample_plain(i, q),
             )
+            bounds["bilinear_sample"] = bound_sampler(k[1], 1, 8)
+            library = {"bilinear_sample": grid_sample_call(image, uv)}
     calls["scharr"] = (lambda f=frames[:1]: ops.scharr_gradients_batched(f),
                        lambda f=frames[:1]: ops.scharr_plain(f))
-    return err, calls
+    bounds["scharr"] = bound_scharr(frames[:1])
+    return err, (calls, bounds, library)
 
 
 def card_vs_cpu(card_states, cpu_states, what: str) -> float:
@@ -608,7 +844,7 @@ def phase_live_timing(frames, calls, frame_ms):
     diagnostics transfer); the profiler's device busy time, launches and
     costliest operators per frame over 5 frames of a fresh run; and each
     kernel against its plain version at the live path's largest shape
-    (`turns`)."""
+    (`time_pairs`)."""
     steady = frame_ms[LIVE_WARMUP:]
     system = make_system(frames.device)
     for i in range(LIVE_WARMUP):
@@ -619,7 +855,7 @@ def phase_live_timing(frames, calls, frame_ms):
         lambda: system.process_frame(frames[next(window)], timestamp=0.0), reps, ops=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
-    per_kernel = {name: turns(kernel, plain) for name, (kernel, plain) in calls.items()}
+    per_kernel = time_pairs(*calls)
     return {
         "frames_per_s": len(steady) / (sum(steady) / 1e3),
         "latency_ms_median": statistics.median(steady),
@@ -676,6 +912,9 @@ def main() -> None:
     T_rel, _, _ = tracker(frames, mono_z=bench.MONO_Z)
     times = phase_timing(pyr, pts, cam, T_rel.contiguous())
     fps = (frames.shape[0] - 1) / chunk_s
+    if not launches < MAX_LAUNCHES_PER_CHUNK:
+        raise AssertionError(f"{launches:.0f} kernel launches per chunk, not below "
+                             f"{MAX_LAUNCHES_PER_CHUNK}")
     say("5 timing", f"{fps:.1f} tracked frames/s (median of {CHUNK_RUNS} chunks: "
         f"{chunk_s * 1e3:.2f} ms per {frames.shape[0]}-frame chunk; profiled "
         f"chunk: {busy_ms:.2f} ms device busy, {launches:.0f} kernel launches, "
@@ -702,7 +941,11 @@ def main() -> None:
     live_times = phase_live_timing(frames, live_calls, frame_ms)
     say("9 live timing", json.dumps(live_times) + f"; {gpu}; "
         f"{time.perf_counter() - t0:.1f} s")
+    if not live_times["launches_per_frame"] < MAX_LAUNCHES_PER_FRAME:
+        raise AssertionError(f"{live_times['launches_per_frame']:.0f} kernel launches per "
+                             f"live frame, not below {MAX_LAUNCHES_PER_FRAME}")
 
+    live_k = live_times["kernels_at_live_shapes"]
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"],
@@ -710,7 +953,14 @@ def main() -> None:
          "launches_live": live["launches"][k["name"]],
          "max_abs_err": max(errs[k["name"]], errs_live[k["name"]]),
          "ms": times[k["name"]]["device_ms"],
-         "plain_ms": times[k["name"]]["plain_device_ms"]}
+         "plain_ms": times[k["name"]]["plain_device_ms"],
+         "bound_ms": times[k["name"]]["bound_ms"],
+         "bound_by": times[k["name"]]["bound_by"],
+         "library_ms": times[k["name"]]["library_ms"],
+         "ms_live": live_k[k["name"]]["device_ms"],
+         "plain_ms_live": live_k[k["name"]]["plain_device_ms"],
+         "bound_ms_live": live_k[k["name"]]["bound_ms"],
+         "library_ms_live": live_k[k["name"]]["library_ms"]}
         for k in table
     ]}))
     print(gpu)

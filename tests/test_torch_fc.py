@@ -7,7 +7,8 @@ Tolerances: residuals and Jacobians rtol 1e-5 / atol 1e-4 with equal masks
 (the warped points and the Jacobian's f32 products are rounded in another
 order); LM poses atol 1e-5, errors rtol 1e-3, inlier counts exactly;
 brightness (a, b) rtol 1e-4 / atol 1e-4 per level (b is in intensity
-units, up to ~90 on the garbage pair); tracked poses 1e-4 on se3.log. With
+units, up to ~90 on the garbage pair; atol 1e-3 with Tukey, whose stopping
+iteration rests on the host's rounding, see the test); tracked poses 1e-4 on se3.log. With
 affine brightness over three levels the 8x8 normal equations are poorly
 conditioned (columns -I_ref and -1), so the tracked (a, b) is held to atol
 2e-3 gray levels and its LM iteration counts are not compared; without it
@@ -157,7 +158,32 @@ def test_lm_level_matches_jax(pairs, kind, affine):
     np.testing.assert_allclose(got.T[:3].numpy(), np.asarray(want.T)[:3], atol=1e-5)
     np.testing.assert_allclose(got.error.numpy(), np.asarray(want.error), rtol=1e-3)
     np.testing.assert_array_equal(got.n_inlier.numpy(), np.asarray(want.n_inlier))
-    np.testing.assert_allclose(got.ab.numpy(), np.asarray(want.ab), rtol=1e-4, atol=1e-4)
+    ab_atol = 1e-4
+    if kind == "tukey" and affine:
+        # The field that differs is the brightness offset b (gray levels).
+        # Tukey re-estimates the MAD scale at every solve, so near the
+        # optimum the accept test compares two means that differ in their
+        # last bits: the float64 run below stops after 3 iterations, JAX's
+        # f32 run after 3-4 and the port's after 3-8, depending on how the
+        # host rounds. Each extra step is below the loop's own stopping
+        # threshold (eps = 1e-4 on |delta|) in the poorly conditioned
+        # (-I_ref, -1) columns. Measured against float64: the port's b is
+        # 3.5e-4 off on the tracked pairs and JAX's 1.1e-3 off on the
+        # garbage pair. So b is held to 10 * eps, and both f32 runs are held
+        # to the float64 run by the same tolerance.
+        ab_atol = 1e-3
+        pts64 = points_from_numpy(pts_l)
+        pts64 = pts64._replace(uv=pts64.uv.double(), p3d=pts64.p3d.double(),
+                               intensity=pts64.intensity.double())
+        ref64 = photometric.lm_level(
+            _t(T0).double(), pts64, pts64.intensity, _t(tgt_pyr.images[lvl]).double(),
+            _t(tgt_pyr.grad_x[lvl]).double(), _t(tgt_pyr.grad_y[lvl]).double(),
+            CAM.scaled(lvl), max_iters=8, weight_kind=WeightKind(kind), affine=affine,
+            ab0=_t(ab0).double(),
+        ).ab.numpy()
+        np.testing.assert_allclose(got.ab.numpy(), ref64, rtol=1e-4, atol=ab_atol)
+        np.testing.assert_allclose(np.asarray(want.ab), ref64, rtol=1e-4, atol=ab_atol)
+    np.testing.assert_allclose(got.ab.numpy(), np.asarray(want.ab), rtol=1e-4, atol=ab_atol)
 
 
 def test_lm_level_ic_affine_matches_jax(pairs):

@@ -5,8 +5,11 @@ version on the card, launch counts included.
 This file imports neither JAX nor the JAX package, so on a CUDA machine
 without JAX it runs alone:
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py`.
-Kernel and plain version evaluate the same f32 operations in the same order
-without FMA contraction, so the card's comparison is exact (atol 0).
+K1, K2 and K3 and their plain versions evaluate the same f32 operations in
+the same order without FMA contraction, so the card's comparison is exact
+(atol 0), planar and texels alike. `lm_evaluate` sums in another order than
+its plain version: valid counts equal, sums within 2e-5 of the pair's
+largest |H| entry (b: of sqrt(2 max|H| cost)), two launches bit-equal.
 """
 import pytest
 
@@ -16,6 +19,7 @@ torch.set_num_threads(1)
 from uwslam_tpu_torch import ops  # noqa: E402
 from uwslam_tpu_torch.camera import PinholeCamera  # noqa: E402
 from uwslam_tpu_torch.lie import se3  # noqa: E402
+from uwslam_tpu_torch.tracking.robust import WeightKind  # noqa: E402
 
 # Power-of-two focal lengths: depth-1 points project exactly onto the edges.
 CAM = PinholeCamera(fx=64.0, fy=64.0, cx=31.5, cy=23.5, width=64, height=48)
@@ -51,6 +55,13 @@ def _cases():
     uv = torch.stack([_uv(300, 3), _uv(300, 4)])
     p3d = torch.stack([_p3d(300, 5), _p3d(300, 6)])
     T = se3.exp(torch.tensor([[0.0] * 6, [0.03, -0.02, 0.01, 0.02, -0.01, 0.015]]))
+    texels = ops.pack_texels(stack[:, 0], stack[:, 1], stack[:, 2])
+    g = torch.Generator().manual_seed(7)
+    ref_int = torch.rand(2, 300, generator=g) * 255.0
+    valid = torch.rand(2, 300, generator=g) > 0.1
+    J_ref = torch.randn(2, 300, 6, generator=g) * valid[..., None]
+    sigma = torch.tensor([0.5, 30.0])
+    lm = (ref_int, valid, sigma)
     return {
         "scharr": (ops.scharr_gradients_batched, ops.scharr_plain, (imgs,), {}),
         "warp_sample": (ops.warp_and_sample, ops.warp_and_sample_plain,
@@ -59,13 +70,27 @@ def _cases():
                            (stack, p3d, T), {"cam": CAM}),
         "bilinear_sample": (ops.cuda_bilinear_sample, ops.bilinear_sample_plain,
                             (stack, uv), {}),
+        "warp_sample_texels": (ops.warp_and_sample, ops.warp_and_sample_plain,
+                               (texels, p3d, T), {"cam": CAM, "texels": True}),
+        "bilinear_sample_texels": (
+            ops.cuda_bilinear_sample,
+            lambda t, q, texels: ops.bilinear_sample_texels_plain(t, q),
+            (texels, uv), {"texels": True}),
+        "lm_evaluate_ic": (ops.lm_evaluate, ops.lm_evaluate_plain,
+                           (stack[:, 0].contiguous(), p3d, T, *lm),
+                           {"cam": CAM, "kind": WeightKind.HUBER, "J_ref": J_ref}),
+        "lm_evaluate_fc": (ops.lm_evaluate, ops.lm_evaluate_plain, (texels, p3d, T, *lm),
+                           {"cam": CAM, "kind": WeightKind.NONE}),
     }
 
 
-CASES = ["scharr", "warp_sample", "warp_sample_c3", "bilinear_sample"]
+# Kernels that equal their plain versions bit for bit, and the fused sums.
+CASES = ["scharr", "warp_sample", "warp_sample_c3", "bilinear_sample",
+         "warp_sample_texels", "bilinear_sample_texels"]
+LM_CASES = ["lm_evaluate_ic", "lm_evaluate_fc"]
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + LM_CASES)
 def test_wrapper_runs_plain_version_on_cpu_tensors(case):
     wrapper, plain, args, kw = _cases()[case]
     before = wrapper.launches
@@ -75,7 +100,7 @@ def test_wrapper_runs_plain_version_on_cpu_tensors(case):
     assert wrapper.launches == before   # nothing was launched
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + LM_CASES)
 def test_wrapper_refuses_other_devices(case):
     wrapper, _, args, kw = _cases()[case]
     with pytest.raises(ValueError):
@@ -109,6 +134,47 @@ def test_kernel_matches_plain_version_on_card(case, cuda_device):
     for a, b in zip(got, want):
         assert a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LM_CASES)
+def test_lm_evaluate_matches_plain_version_on_card(case, cuda_device):
+    wrapper, plain, args, kw = _cases()[case]
+    args = tuple(a.to(cuda_device) for a in args)
+    kw = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    before = wrapper.launches
+    got, again, want = wrapper(*args, **kw).clone(), wrapper(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, 44], want[:, 44]) and float(want[:, 44].min()) > 0
+    H = got[:, :36].view(-1, 6, 6)
+    assert torch.equal(H, H.transpose(1, 2)) and not got[:, 45:].any()
+    h_scale = want[:, :36].abs().amax(-1, keepdim=True)
+    b_scale = torch.sqrt(2.0 * h_scale * want[:, 42:43])
+    for sl, scale in ((slice(0, 36), h_scale), (slice(36, 42), b_scale),
+                      (slice(42, 44), want[:, 42:44].abs())):
+        assert bool(((got[:, sl] - want[:, sl]).abs() <= 2e-5 * scale).all())
+
+
+@pytest.mark.cuda
+def test_lm_evaluator_rejects_bad_arguments_on_card(cuda_device):
+    _, _, (target, p3d, T, ref_int, valid, sigma), kw = _cases()["lm_evaluate_ic"]
+    d = cuda_device
+    good = dict(target=target.to(d), p3d=p3d.to(d), ref_intensity=ref_int.to(d),
+                pts_valid=valid.to(d), sigma=sigma.to(d), cam=CAM, kind=WeightKind.HUBER,
+                J_ref=kw["J_ref"].to(d))
+    evaluator = ops.LMEvaluator(**good)
+    with pytest.raises(ValueError):
+        evaluator(T.to(d)[:1])                                      # pose shape
+    with pytest.raises(ValueError):
+        evaluator(T)                                                # pose device
+    for name, bad in (("pts_valid", valid.to(d).float()), ("sigma", sigma.to(d)[:1]),
+                      ("J_ref", kw["J_ref"].to(d)[:, :, :5]), ("p3d", p3d)):
+        with pytest.raises(ValueError):
+            ops.LMEvaluator(**{**good, name: bad})
+    with pytest.raises(ValueError):
+        ops.LMEvaluator(**{**good, "kind": WeightKind.TUKEY})
 
 
 @pytest.mark.cuda
@@ -150,10 +216,22 @@ def test_kernels_at_main_path_shapes_on_card(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("pairs,points,want", [
+    (1, 2048, (256, 8)),      # the live frame: one pair over 8 SMs
+    (95, 2048, (256, 2)),     # the offline chunk: ~2 blocks per SM in all
+    (32, 2048, (256, 8)), (40, 2048, (256, 4)), (500, 2048, (256, 1)),
+    (1, 300, (256, 2)), (1, 100, (256, 1)), (1, 300000, (256, 8)),
+])
+def test_lm_evaluate_launch_shape(pairs, points, want):
+    from uwslam_tpu_torch.ops.cuda_track import launch_shape
+
+    assert launch_shape(pairs, points, sm_count=132) == want
+
+
 def test_build_targets_sm90a_from_the_package_sources():
     from uwslam_tpu_torch.ops import _lib
 
     path = _lib.library_path()
     assert path.parent == _lib.BUILD_DIR and path.suffix == ".so"
-    assert all((_lib.CSRC / s).is_file() for s in _lib.SOURCES)
+    assert all((_lib.CSRC / s).is_file() for s in _lib.SOURCES + _lib.HEADERS)
     assert "arch=compute_90a,code=sm_90a" in _lib.NVCC_FLAGS

@@ -1,17 +1,39 @@
 """Hand-written CUDA kernels of the tracking path, each beside its plain
-PyTorch version. K1 `scharr_gradients_batched`, K2 `warp_and_sample`,
-K3 `cuda_bilinear_sample`: a CPU tensor runs the plain version, a CUDA
-tensor launches the kernel (built from `csrc/` at first use). Each wrapper
-counts its kernel launches in its `launches` attribute."""
+PyTorch version. K1 `scharr_gradients_batched`, K2 `warp_and_sample`, its
+fused redesign `lm_evaluate` (one launch per LM evaluation), K3
+`cuda_bilinear_sample`: a CPU tensor runs the plain version, a CUDA tensor
+launches the kernel (built from `csrc/` at first use). Each wrapper counts
+its kernel launches in its `launches` attribute. K2 and K3 take the three
+tracking channels as planes or as texels (`pack_texels`)."""
 from .cuda_pyramid import scharr_gradients_batched, scharr_plain
-from .cuda_sample import bilinear_sample_plain, cuda_bilinear_sample
-from .cuda_track import warp_and_sample, warp_and_sample_plain
+from .cuda_sample import (
+    bilinear_sample_plain,
+    bilinear_sample_texels_plain,
+    cuda_bilinear_sample,
+    pack_texels,
+    unpack_texels,
+)
+from .cuda_track import (
+    LMEvaluator,
+    WarpSampler,
+    lm_evaluate,
+    lm_evaluate_plain,
+    warp_and_sample,
+    warp_and_sample_plain,
+)
 
 __all__ = [
+    "LMEvaluator",
+    "WarpSampler",
     "bilinear_sample_plain",
+    "bilinear_sample_texels_plain",
     "cuda_bilinear_sample",
+    "lm_evaluate",
+    "lm_evaluate_plain",
+    "pack_texels",
     "scharr_gradients_batched",
     "scharr_plain",
+    "unpack_texels",
     "warp_and_sample",
     "warp_and_sample_plain",
 ]

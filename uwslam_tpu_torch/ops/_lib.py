@@ -1,15 +1,17 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-All sources under `uwslam_tpu_torch/csrc/` go through ONE nvcc call into a
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds, not minutes). The library lands in `uwslam_tpu_torch/_build/`
+All sources under `uwslam_tpu_torch/csrc/` go through ONE nvcc call (which
+compiles them in parallel, `--threads 0`) into a shared library with a plain
+C interface (no PyTorch headers, so the build takes seconds, not minutes). The library lands in `uwslam_tpu_torch/_build/`
 (listed in .gitignore) under a name that hashes the sources and flags, so an
 edited source is rebuilt and an unchanged one is reused. Nothing is built or
 loaded at import: the first kernel launch builds. The build needs the CUDA
 toolkit and no network.
 
-Every C entry point launches on the stream it is given, returns
-`cudaGetLastError()`, and `check` raises if that is not 0.
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `launch` calls one on the current stream of a tensor's
+device and raises if that is not 0. Argument types are set once, when the
+library is loaded.
 """
 from __future__ import annotations
 
@@ -27,22 +29,27 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("scharr.cu", "warp_sample.cu")
+SOURCES = ("scharr.cu", "warp_sample.cu", "lm_evaluate.cu")
+HEADERS = ("sampling.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "--threads", "0",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # img, gx, gy, gm, B, H, W, stream
     "uws_scharr": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # img, p3d, T, out, valid, B, C, H, W, N, fx, fy, cx, cy, stream
+    # img, p3d, T, out, valid, B, C, H, W, N, fx, fy, cx, cy, texels, stream
     "uws_warp_sample": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _P),
-    # img, uv, out, valid, B, C, H, W, N, stream
-    "uws_bilinear_sample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                        _F, _F, _F, _F, _I, _P),
+    # img, uv, out, valid, B, C, H, W, N, texels, stream
+    "uws_bilinear_sample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # img, p3d, T, ref_int, pts_valid, J_ref, sigma, out, B, H, W, N,
+    # ref_stride, fx, fy, cx, cy, fc, kind, threads, blocks, stream
+    "uws_lm_evaluate": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _I, _I, _I, _I, _P),
 }
 
 
@@ -62,7 +69,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libuwslam_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -103,23 +110,28 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def stream(t: torch.Tensor) -> int:
-    """The current CUDA stream of the tensor's device, as a raw handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def check(err: int, kernel: str) -> None:
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point `name` with `args` and, last, the current
+    stream of `device`; raise if the launch was refused. The device guard is
+    entered only when `device` is not already the current one."""
+    fn = getattr(library(), name)
+    if torch.cuda.current_device() == device.index:
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = library().uws_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
 def require(
     t: torch.Tensor, name: str, shape: tuple, device: torch.device,
-    dtype=torch.float32,
+    dtype=torch.float32, rows: bool = False,
 ):
     """Validate a kernel argument: on `device` (a CUDA device), dtype,
-    shape (None = any size), contiguous."""
+    shape (None = any size), contiguous; with rows=True a 2-D tensor needs
+    only contiguous rows (the kernel is given their stride)."""
     if device.type != "cuda":
         raise ValueError(f"the kernels run on CUDA or CPU tensors, got {device}")
     if t.device != device:
@@ -130,5 +142,7 @@ def require(
         s is not None and s != d for s, d in zip(shape, t.shape)
     ):
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if rows and t.stride(1) == 1 and t.stride(0) >= t.shape[1]:
+        return
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

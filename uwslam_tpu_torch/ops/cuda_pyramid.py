@@ -45,12 +45,8 @@ def scharr_gradients_batched(images: torch.Tensor):
     gx = torch.empty_like(images)
     gy = torch.empty_like(images)
     gm = torch.empty_like(images)
-    with torch.cuda.device(images.device):
-        err = _lib.library().uws_scharr(
-            images.data_ptr(), gx.data_ptr(), gy.data_ptr(), gm.data_ptr(),
-            B, H, W, _lib.stream(images),
-        )
-        _lib.check(err, "scharr")
+    _lib.launch("uws_scharr", images.device, images.data_ptr(), gx.data_ptr(),
+                gy.data_ptr(), gm.data_ptr(), B, H, W)
     scharr_gradients_batched.launches += 1
     return gx, gy, gm
 

@@ -1,32 +1,60 @@
-"""K2: warp -> project -> bilinear sample for a batch of frame pairs (CUDA
-kernel `csrc/warp_sample.cu:uws_warp_sample`).
+"""K2 and its redesign for the H100: warp -> project -> bilinear sample for
+a batch of frame pairs (`csrc/warp_sample.cu:uws_warp_sample`), and the
+whole Levenberg-Marquardt evaluation in one launch
+(`csrc/lm_evaluate.cu:uws_lm_evaluate`).
 
-Replaces the TPU kernel `uwslam_tpu/ops/pallas_track.py:_kernel` (wrapper
-`warp_and_sample`), the work of every inverse-compositional LM iteration.
-One pose per pair, one thread per point. The TPU kernel samples through a
-bf16 one-hot matmul; this one is four f32 loads per point and channel with
-the CPU gather's semantics, bound by those scattered loads, which stay in
-L1/L2 (a 640 x 480 f32 level is 1.2 MB).
+Both replace the TPU kernel `uwslam_tpu/ops/pallas_track.py:_kernel`
+(wrapper `warp_and_sample`), the work of every LM iteration. One pose per
+pair, one thread per point; the TPU kernel samples through a bf16 one-hot
+matmul, these gather four f32 taps per point with the CPU gather's
+semantics. Both are bound by bytes, and at one pair by the launch itself.
 
-`warp_and_sample_plain` is the same function in plain PyTorch.
-`warp_and_sample` runs it for a CPU tensor and launches the kernel for a
-CUDA tensor.
+`warp_and_sample` returns the (B, C, N) samples. On the TPU the code that
+consumes them (residual, Jacobian, robust weights and cost, normal
+equations) is fused by XLA; in eager PyTorch it is 30 to 65 small launches
+per evaluation. `lm_evaluate` does all of it in the kernel and returns 48
+floats per pair: H (6 x 6), b, the robust cost's sum, sum |r| and the valid
+count (`LM_*` below). It covers Huber and unweighted least squares at a
+given scale sigma, IC (constant reference Jacobian, one target plane) and FC
+(Jacobian from the sampled target gradients; the target as texels). Tukey
+weights (whose scale is a median of the residuals at every solve), affine
+brightness (8 parameters) and the first evaluation of a level (whose
+residuals give sigma) take `warp_and_sample` and plain operations.
+
+`WarpSampler` and `LMEvaluator` bind a kernel to one level's constant inputs:
+shapes, dtypes, devices and contiguity are checked once, and each call
+checks only the pose. `warp_and_sample_plain` and `lm_evaluate_plain` are
+the same functions in plain PyTorch: a CPU tensor takes them, a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
+from ..lie import so3
 from . import _lib
-from .cuda_sample import bilinear_sample_plain
+from .cuda_sample import bilinear_sample_plain, sampled_image_shape, unpack_texels
+
+# Layout of a pair's 48 sums.
+LM_WIDTH = 48
+LM_H = slice(0, 36)    # H = sum w J J^T, row-major 6 x 6
+LM_B = slice(36, 42)   # b = -sum w J r
+LM_COST = 42           # sum rho(r / sigma) sigma^2 over the valid points
+LM_ABS_R = 43          # sum |r|
+LM_COUNT = 44          # valid points
+_KINDS = {"none": 0, "huber": 1}   # WeightKind values the kernel computes
 
 
-def warp_and_sample_plain(images, p3d, T, cam):
-    """images (B, C, H, W), p3d (B, N, 3) reference-camera points, T (B, 4, 4)
-    (target <- reference) -> ((B, C, N) samples, (B, N) valid).
+def warp_and_sample_plain(images, p3d, T, cam, texels: bool = False):
+    """images (B, C, H, W) or, with texels=True, (B, H, W, 4); p3d (B, N, 3)
+    reference-camera points, T (B, 4, 4) (target <- reference) ->
+    ((B, C, N) samples, (B, N) valid).
 
     p_t = R p + t is written out term by term, in the kernel's order; valid =
     z > 1e-3 and the projection inside [0, W-1] x [0, H-1]; samples are 0
     where invalid."""
+    if texels:
+        images = unpack_texels(images)
     px, py, pz = p3d[..., 0], p3d[..., 1], p3d[..., 2]
 
     def row(i: int) -> torch.Tensor:
@@ -39,28 +67,167 @@ def warp_and_sample_plain(images, p3d, T, cam):
     return torch.where(ok[:, None, :], vals, 0.0), ok
 
 
-def warp_and_sample(images, p3d, T, cam):
-    """images (B, C, H, W) f32, p3d (B, N, 3) f32, T (B, 4, 4) f32 ->
-    ((B, C, N) f32, (B, N) bool). `cam` is the level's PinholeCamera."""
-    if images.device.type == "cpu":
-        return warp_and_sample_plain(images, p3d, T, cam)
-    dev = images.device
-    _lib.require(images, "images", (None, None, None, None), dev)
-    B, C, H, W = images.shape
-    _lib.require(p3d, "p3d", (B, None, 3), dev)
-    _lib.require(T, "T", (B, 4, 4), dev)
-    N = p3d.shape[1]
-    out = torch.empty((B, C, N), dtype=torch.float32, device=dev)
-    valid = torch.empty((B, N), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib.library().uws_warp_sample(
-            images.data_ptr(), p3d.data_ptr(), T.data_ptr(), out.data_ptr(),
-            valid.data_ptr(), B, C, H, W, N,
-            cam.fx, cam.fy, cam.cx, cam.cy, _lib.stream(images),
-        )
-        _lib.check(err, "warp_sample")
-    warp_and_sample.launches += 1
-    return out, valid
+class WarpSampler:
+    """K2 bound to a level's target and points: `sampler(T)` samples at the
+    points warped by T (B, 4, 4) -> ((B, C, N) f32, (B, N) bool).
+
+    images (B, C, H, W) f32 or, with texels=True, (B, H, W, 4) f32 (C = 3);
+    p3d (B, N, 3) f32; `cam` the level's PinholeCamera."""
+
+    def __init__(self, images, p3d, cam, texels: bool = False):
+        self.images, self.p3d, self.cam, self.texels = images, p3d, cam, texels
+        self.device = dev = images.device
+        if dev.type == "cpu":
+            return
+        B, C, H, W = sampled_image_shape(images, texels, dev)
+        _lib.require(p3d, "p3d", (B, None, 3), dev)
+        N = p3d.shape[1]
+        self._out_shape, self._pose_shape = (B, C, N), (B, 4, 4)
+        self._head = (images.data_ptr(), p3d.data_ptr())
+        self._tail = (B, C, H, W, N, cam.fx, cam.fy, cam.cx, cam.cy, int(texels))
+
+    def __call__(self, T):
+        if self.device.type == "cpu":
+            return warp_and_sample_plain(self.images, self.p3d, T, self.cam, self.texels)
+        dev = self.device
+        _lib.require(T, "T", self._pose_shape, dev)
+        B, _, N = self._out_shape
+        out = torch.empty(self._out_shape, dtype=torch.float32, device=dev)
+        valid = torch.empty((B, N), dtype=torch.bool, device=dev)
+        _lib.launch("uws_warp_sample", dev, *self._head, T.data_ptr(),
+                    out.data_ptr(), valid.data_ptr(), *self._tail)
+        warp_and_sample.launches += 1
+        return out, valid
+
+
+def warp_and_sample(images, p3d, T, cam, texels: bool = False):
+    """One K2 call: images (B, C, H, W) f32 (texels=True: (B, H, W, 4)),
+    p3d (B, N, 3) f32, T (B, 4, 4) f32 -> ((B, C, N) f32, (B, N) bool)."""
+    return WarpSampler(images, p3d, cam, texels)(T)
 
 
 warp_and_sample.launches = 0
+
+
+def fc_jacobian(gx, gy, p3d, T, cam):
+    """The forward-compositional Jacobian rows (B, N, 6), [v, w] order, from
+    the target gradients gx, gy (B, N) sampled at the warped points:
+    dI/d(uv) . d(uv)/dp_t, then dp_t/d(delta) = [R | -R hat(p)] for the
+    right update T exp(delta)."""
+    R = T[:, :3, :3]
+    p_t = torch.einsum("bij,bnj->bni", R, p3d) + T[:, None, :3, 3]
+    Jp = cam.project_jacobian(p_t)                            # (B, N, 2, 3)
+    g = gx[..., None] * Jp[..., 0, :] + gy[..., None] * Jp[..., 1, :]
+    gR = torch.einsum("bnj,bjk->bnk", g, R)
+    Jw = torch.einsum("bnj,bnjk->bnk", gR, -so3.hat(p3d))
+    return torch.cat([gR, Jw], dim=-1)
+
+
+def lm_evaluate_plain(target, p3d, T, ref_intensity, pts_valid, sigma, cam, kind,
+                      J_ref=None):
+    """`lm_evaluate` in plain PyTorch -> (B, 48): K2's plain version, the
+    residual, the Jacobian, `tracking.robust`'s weights and cost, and the
+    normal equations as the LM loop composes them."""
+    from ..tracking import robust   # tracking imports this module
+
+    fc = J_ref is None
+    vals, ok = warp_and_sample_plain(target if fc else target[:, None], p3d, T, cam,
+                                     texels=fc)
+    valid = pts_valid & ok
+    r = torch.where(valid, vals[:, 0] - ref_intensity, 0.0)
+    J = fc_jacobian(vals[:, 1], vals[:, 2], p3d, T, cam) if fc else J_ref
+    J = torch.where(valid[..., None], J, 0.0)
+    wJ = robust.weights(r, valid, kind, sigma=sigma)[..., None] * J
+    H = torch.einsum("bni,bnj->bij", J, wJ)
+    b = -torch.einsum("bni,bn->bi", wJ, r)
+    tail = torch.stack([
+        robust.robust_cost_sum(r, valid, kind, sigma=sigma),
+        torch.abs(r).sum(-1),
+        valid.sum(-1).to(r.dtype),
+    ], dim=-1)
+    pad = torch.zeros((r.shape[0], LM_WIDTH - 45), dtype=r.dtype, device=r.device)
+    return torch.cat([H.reshape(-1, 36), b, tail, pad], dim=-1)
+
+
+def launch_shape(B: int, N: int, sm_count: int) -> tuple[int, int]:
+    """(threads per block, blocks per pair) of an `lm_evaluate` launch: blocks
+    of 256 threads, and per pair a cluster of 1, 2, 4 or 8 of them. One pair
+    of 2048 points spreads over 8 SMs; many pairs get fewer blocks each
+    (about two blocks per SM in all), whose threads then stride over several
+    points and reduce once."""
+    want = min(8, -(-N // 256), max(1, 2 * sm_count // B))
+    blocks = 1
+    while blocks * 2 <= want:
+        blocks *= 2
+    return 256, blocks
+
+
+class LMEvaluator:
+    """`lm_evaluate` bound to one level of B pairs: `evaluator(T)` -> the
+    (B, 48) sums of the evaluation at poses T (B, 4, 4).
+
+    target: IC (`J_ref` given, (B, N, 6) f32, 0 where the point is invalid)
+    the target level (B, H, W) f32; FC (`J_ref` None) its texels
+    (B, H, W, 4) f32 from `pack_texels`. p3d (B, N, 3) f32; ref_intensity
+    (B, N) f32 with contiguous rows (a channel of a K3 result will do);
+    pts_valid (B, N) bool; sigma (B,) f32, the level's robust
+    scale (clamped at 1 as `tracking.robust` does); kind WeightKind.HUBER or
+    NONE.
+
+    On the card every call writes the same (B, 48) buffer, allocated here:
+    use or copy a result before the next call."""
+
+    def __init__(self, target, p3d, ref_intensity, pts_valid, sigma, cam, kind,
+                 J_ref=None):
+        if kind.value not in _KINDS:
+            raise ValueError(f"lm_evaluate computes {sorted(_KINDS)} weights, not {kind}")
+        self._plain_args = (p3d, ref_intensity, pts_valid, sigma, cam, kind, J_ref)
+        self.target = target
+        self.device = dev = target.device
+        if dev.type == "cpu":
+            return
+        fc = J_ref is None
+        if fc:
+            B, _, H, W = sampled_image_shape(target, True, dev)
+        else:
+            _lib.require(target, "target", (None, None, None), dev)
+            B, H, W = target.shape
+        _lib.require(p3d, "p3d", (B, None, 3), dev)
+        N = p3d.shape[1]
+        _lib.require(ref_intensity, "ref_intensity", (B, N), dev, rows=True)
+        _lib.require(pts_valid, "pts_valid", (B, N), dev, dtype=torch.bool)
+        _lib.require(sigma, "sigma", (B,), dev)
+        if not fc:
+            _lib.require(J_ref, "J_ref", (B, N, 6), dev)
+            if J_ref.data_ptr() % 8:
+                raise ValueError("J_ref must be 8-byte aligned")
+        self._pose_shape = (B, 4, 4)
+        self.out = torch.empty((B, LM_WIDTH), dtype=torch.float32, device=dev)
+        self._head = (target.data_ptr(), p3d.data_ptr())
+        self._tail = (
+            ref_intensity.data_ptr(), pts_valid.data_ptr(),
+            0 if fc else J_ref.data_ptr(), sigma.data_ptr(), self.out.data_ptr(),
+            B, H, W, N, ref_intensity.stride(0), cam.fx, cam.fy, cam.cx, cam.cy,
+            int(fc), _KINDS[kind.value],
+            *launch_shape(B, N, torch.cuda.get_device_properties(dev).multi_processor_count),
+        )
+
+    def __call__(self, T):
+        if self.device.type == "cpu":
+            p3d, *rest = self._plain_args
+            return lm_evaluate_plain(self.target, p3d, T, *rest)
+        _lib.require(T, "T", self._pose_shape, self.device)
+        _lib.launch("uws_lm_evaluate", self.device, *self._head, T.data_ptr(),
+                    *self._tail)
+        lm_evaluate.launches += 1
+        return self.out
+
+
+def lm_evaluate(target, p3d, T, ref_intensity, pts_valid, sigma, cam, kind,
+                J_ref=None):
+    """One fused LM evaluation (see `LMEvaluator`) -> (B, 48) f32."""
+    return LMEvaluator(target, p3d, ref_intensity, pts_valid, sigma, cam, kind,
+                       J_ref)(T)
+
+
+lm_evaluate.launches = 0

@@ -4,12 +4,21 @@ Counterpart of `uwslam_tpu.tracking.photometric`: forward-compositional
 (`residuals_and_jacobian`, `lm_level`) and inverse-compositional
 (`lm_level_ic`) Levenberg-Marquardt, affine brightness (`_affine_residual`,
 `_affine_columns`), and the coarse-to-fine `track` with its basin guard.
-The JAX package's `_warp_sample` is kernel K2, `ops.cuda_track.warp_and_sample`
-(C = 3 in FC: intensity and both target gradients; C = 1 in IC and the
-basin guard); its reference-side `bilinear_sample_auto` is kernel K3,
-`ops.cuda_sample.cuda_bilinear_sample`. The JAX package vmaps one pair's
-program over the pairs; here every tensor carries the pair dimension B
-first, and the live path is B = 1 of the same code.
+The JAX package vmaps one pair's program over the pairs; here every tensor
+carries the pair dimension B first, and the live path is B = 1 of the same
+code.
+
+The JAX package's `_warp_sample` is kernel K2. Here an LM evaluation with
+Huber weights or none, without affine brightness, is ONE launch of K2's
+redesign `ops.cuda_track.lm_evaluate`: warp, sample, residual, Jacobian,
+robust weight and cost, and the pair's normal equations; the loop carries
+48 floats per pair, and residuals and Jacobians never reach device memory.
+Tukey weights (their scale is a median of the residuals at every solve),
+affine=True (8 parameters) and the first evaluation of every level (whose
+residuals give the level's scale sigma0) go through
+`ops.cuda_track.warp_and_sample` (C = 3 texels in FC, C = 1 in IC and the
+basin guard) and plain operations. The reference-side `bilinear_sample_auto`
+is kernel K3, `ops.cuda_sample.cuda_bilinear_sample`.
 
 The JAX LM loop is a `lax.while_loop`, which under vmap runs until every
 lane is done while finished lanes keep their state. Here it is a fixed loop
@@ -29,8 +38,18 @@ import torch
 from ..camera.model import PinholeCamera
 from ..image.pyramid import FramePyramid
 from ..lie import se3, so3
-from ..ops.cuda_sample import cuda_bilinear_sample
-from ..ops.cuda_track import warp_and_sample
+from ..ops.cuda_sample import cuda_bilinear_sample, pack_texels
+from ..ops.cuda_track import (
+    LM_ABS_R,
+    LM_B,
+    LM_COST,
+    LM_COUNT,
+    LM_H,
+    LMEvaluator,
+    WarpSampler,
+    fc_jacobian,
+    warp_and_sample,
+)
 from ..utils.linalg import cholesky_solve_unrolled
 from ..utils.precision import disable_tf32
 from .points import TrackPoints
@@ -39,6 +58,7 @@ from .robust import WeightKind, mad_sigma, robust_cost, weights
 disable_tf32()
 
 MODES = ("fc", "ic")
+FUSED_KINDS = (WeightKind.HUBER, WeightKind.NONE)   # what `lm_evaluate` computes
 
 
 class TrackResult(NamedTuple):
@@ -52,15 +72,16 @@ class TrackResult(NamedTuple):
 
 class LMState(NamedTuple):
     T: torch.Tensor           # (B, 4, 4) best accepted pose
-    r_best: torch.Tensor      # (B, N) residuals at T
-    J: torch.Tensor           # (B, N, 6|8) FC: Jacobian at T; IC: the constant one
-    valid_best: torch.Tensor  # (B, N) validity at T
+    r_best: torch.Tensor | None      # (B, N) residuals at T
+    J: torch.Tensor | None    # (B, N, 6|8) FC: Jacobian at T; IC: the constant one
+    valid_best: torch.Tensor | None  # (B, N) validity at T
     error: torch.Tensor       # (B,) robust error at T
     lam: torch.Tensor         # (B,) LM damping
     k: torch.Tensor           # (B,) iterations run
     done: torch.Tensor        # (B,) bool
     n_inlier: torch.Tensor    # (B,) valid count at T
     ab: torch.Tensor | None = None  # (B, 2) affine brightness at T
+    abs_r: torch.Tensor | None = None  # (B,) sum |r| at T (the basin guard's)
 
 
 _cholesky_solve6 = cholesky_solve_unrolled   # the JAX module's name for it
@@ -92,25 +113,13 @@ def _affine_columns(ref_intensity, valid):
     return torch.stack([ja, jb], dim=-1)
 
 
-def _stack_target(image, grad_x, grad_y) -> torch.Tensor:
-    return torch.stack([image, grad_x, grad_y], dim=1).contiguous()
-
-
-def _residuals_stacked(T, pts, ref_intensity, stacked, cam):
-    """`residuals_and_jacobian` on a target already stacked as (B, 3, H, W)."""
-    vals, ok = warp_and_sample(stacked, pts.p3d, T, cam)     # K2, C = 3
-    i_t, gx, gy = vals[:, 0], vals[:, 1], vals[:, 2]
-    r = i_t - ref_intensity
+def _residuals_sampled(T, pts, ref_intensity, sampler, cam):
+    """`residuals_and_jacobian` through a K2 sampler bound to the target's
+    texels."""
+    vals, ok = sampler(T)                                     # K2, C = 3
     valid = pts.valid & ok
-    R = T[:, :3, :3]
-    p_t = torch.einsum("bij,bnj->bni", R, pts.p3d) + T[:, None, :3, 3]
-    # dI/d(uv) . d(uv)/dp_t, then dp_t/d(delta) = [R | -R hat(p)] for the
-    # right update T exp(delta).
-    Jp = cam.project_jacobian(p_t)                            # (B, N, 2, 3)
-    g = gx[..., None] * Jp[..., 0, :] + gy[..., None] * Jp[..., 1, :]
-    gR = torch.einsum("bnj,bjk->bnk", g, R)
-    Jw = torch.einsum("bnj,bnjk->bnk", gR, -so3.hat(pts.p3d))
-    J = torch.cat([gR, Jw], dim=-1)
+    r = vals[:, 0] - ref_intensity
+    J = fc_jacobian(vals[:, 1], vals[:, 2], pts.p3d, T, cam)
     return torch.where(valid, r, 0.0), torch.where(valid[..., None], J, 0.0), valid
 
 
@@ -124,50 +133,93 @@ def residuals_and_jacobian(
     cam: PinholeCamera,
 ):
     """One FC pass for B pairs: warp -> project -> sample the target's
-    intensity and gradients (kernel K2, C = 3) -> residual and analytic
-    Jacobian. T (B, 4, 4); image and gradients (B, H, W). Returns r (B, N),
-    J (B, N, 6) in [v, w] order, valid (B, N); r and J are 0 where invalid."""
-    return _residuals_stacked(
-        T, pts, ref_intensity, _stack_target(image, grad_x, grad_y), cam
-    )
+    intensity and gradients (kernel K2 on texels, C = 3) -> residual and
+    analytic Jacobian. T (B, 4, 4); image and gradients (B, H, W). Returns
+    r (B, N), J (B, N, 6) in [v, w] order, valid (B, N); r and J are 0 where
+    invalid."""
+    sampler = WarpSampler(pack_texels(image, grad_x, grad_y), pts.p3d, cam, texels=True)
+    return _residuals_sampled(T, pts, ref_intensity, sampler, cam)
 
 
-def _lm_loop(
-    T0: torch.Tensor,
-    ab0: torch.Tensor,
-    evaluate: Callable,
-    max_iters: int,
-    eps: float,
-    weight_kind: WeightKind,
-    init_lambda: float,
-    affine: bool,
-    J_const: torch.Tensor | None = None,
-) -> LMState:
-    """Deferred-evaluation LM shared by FC and IC: each iteration evaluates
-    the current candidate once (`evaluate(T, ab) -> (r, J, valid)`), accepts
-    or rejects the previous step on the rho objective at the level's sigma0,
-    and solves the next step from the best state. Huber and none keep
-    sigma0; Tukey re-estimates the MAD scale per solve over the current
-    validity mask.
+def _plain_steps(residuals, first, sigma0, weight_kind, J_const):
+    """The LM loop's steps from per-point residuals: `residuals(T, ab) ->
+    (r, J or None, valid)` (J None: the constant `J_const`, masked per
+    solve); `first` is its result at the initial state. Huber and none keep
+    sigma0; Tukey re-estimates the MAD scale per solve over the state's
+    validity mask. The state carried is (r, valid) and, in FC, J."""
 
-    Only state that varies is carried: FC's `evaluate` returns J (zero where
-    invalid) and the loop keeps the best state's J; IC's returns None and
-    each solve masks the constant `J_const` by the best state's validity.
-    The brightness (a, b) is carried only when `affine`; otherwise it stays
-    `ab0`."""
-    B = T0.shape[0]
-    r0, J0, valid0 = evaluate(T0, ab0)
-    sigma0 = mad_sigma(r0, valid0)
-    carry_J = J0 is not None
+    def evaluation(r, J, valid):
+        err = robust_cost(r, valid, weight_kind, sigma=sigma0)
+        return err, valid.sum(-1), (r, valid) if J is None else (r, valid, J)
 
-    def solve_from(r, J, valid, lam):
-        if J is None:
-            J = torch.where(valid[..., None], J_const, 0.0)
+    def evaluate(T, ab):
+        return evaluation(*residuals(T, ab))
+
+    def solve(state, lam):
+        r, valid = state[:2]
+        J = state[2] if len(state) == 3 else torch.where(valid[..., None], J_const, 0.0)
         sig = mad_sigma(r, valid) if weight_kind == WeightKind.TUKEY else sigma0
         wJ = weights(r, valid, weight_kind, sigma=sig)[..., None] * J
         H = torch.einsum("bni,bnj->bij", J, wJ)
         b = -torch.einsum("bni,bn->bi", wJ, r)
         return _solve_damped(H, b, lam)
+
+    return evaluation(*first), evaluate, solve
+
+
+def _fused_steps(evaluator: LMEvaluator, T0):
+    """The LM loop's steps from `lm_evaluate`: one launch per evaluation; the
+    state carried is the pair's 48 sums."""
+
+    def evaluate(T, ab):
+        sums = evaluator(T)
+        count = sums[:, LM_COUNT]
+        return sums[:, LM_COST] / torch.clamp(count, min=1.0), count.long(), (sums,)
+
+    def solve(state, lam):
+        sums = state[0]
+        return _solve_damped(sums[:, LM_H].view(-1, 6, 6), sums[:, LM_B], lam)
+
+    err0, n0, (sums0,) = evaluate(T0, None)
+    # The evaluator writes one buffer: the initial state keeps a copy.
+    return (err0, n0, (sums0.clone(),)), evaluate, solve
+
+
+class _Best(NamedTuple):
+    """What `_lm_loop` returns: the best accepted state."""
+    T: torch.Tensor
+    ab: torch.Tensor
+    state: tuple
+    error: torch.Tensor
+    lam: torch.Tensor
+    k: torch.Tensor
+    done: torch.Tensor
+    n_inlier: torch.Tensor
+
+
+def _lm_loop(
+    T0: torch.Tensor,
+    ab0: torch.Tensor,
+    first: tuple,
+    evaluate: Callable,
+    solve: Callable,
+    max_iters: int,
+    eps: float,
+    init_lambda: float,
+    affine: bool,
+) -> _Best:
+    """Deferred-evaluation LM shared by FC and IC, fused and not: each
+    iteration evaluates the current candidate once (`evaluate(T, ab) ->
+    (error (B,), valid count (B,), state)`, `first` at (T0, ab0)), accepts or
+    rejects the previous step on the rho objective at the level's sigma0, and
+    solves the next step from the best state (`solve(state, lam) -> delta`).
+
+    `state` is a tuple of tensors with the pair dimension first, whatever
+    the solve needs (`_plain_steps`, `_fused_steps`); the loop only selects
+    between the candidate's and the best one's per pair. The brightness
+    (a, b) is carried only when `affine`; otherwise it stays `ab0`."""
+    B = T0.shape[0]
+    error, n_inlier, s_best = first
 
     def apply_delta(T, delta):
         # FC: T exp(delta). IC: with r = I_tgt - I_ref and b = -J^T W r the
@@ -176,56 +228,85 @@ def _lm_loop(
         return se3.normalize(se3.compose(T, se3.exp(delta[:, :6])))
 
     lam = torch.full((B,), init_lambda, dtype=T0.dtype, device=T0.device)
-    delta0 = solve_from(r0, J0, valid0, lam)
+    delta0 = solve(s_best, lam)
     T = apply_delta(T0, delta0)
     ab = ab0 + delta0[:, 6:] if affine else ab0
-    T_best, ab_best, r_best, J_best, valid_best = T0, ab0, r0, J0, valid0
-    error = robust_cost(r0, valid0, weight_kind, sigma=sigma0)
+    T_best, ab_best = T0, ab0
     k = torch.zeros(B, dtype=torch.int64, device=T0.device)
     done = torch.zeros(B, dtype=torch.bool, device=T0.device)
-    n_inlier = valid0.sum(-1)
 
     for _ in range(max_iters):
         active = ~done & (k < max_iters)
-        r, J, valid = evaluate(T, ab)
-        err = robust_cost(r, valid, weight_kind, sigma=sigma0)
+        err, n_valid, s = evaluate(T, ab)
         accept = (err < error) & torch.isfinite(err)
         T_base = _where(accept, T, T_best)
-        r_base = _where(accept, r, r_best)
-        J_base = _where(accept, J, J_best) if carry_J else None
-        v_base = _where(accept, valid, valid_best)
+        s_base = tuple(_where(accept, x, y) for x, y in zip(s, s_best))
         err_base = torch.where(accept, err, error)
         lam_next = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-7, 1e3)
-        delta = solve_from(r_base, J_base, v_base, lam_next)
+        delta = solve(s_base, lam_next)
         ok = torch.isfinite(delta).all(-1)
         T_next = _where(ok, apply_delta(T_base, delta), T_base)
         small = torch.linalg.vector_norm(delta, dim=-1) < eps
         done_next = (accept & small) | (lam_next > 500.0) | ~ok
         # The inlier count of the best pose, not of a rejected candidate.
-        n_next = torch.where(accept, valid.sum(-1), n_inlier)
+        n_next = torch.where(accept, n_valid, n_inlier)
         # Commit the step only for pairs still iterating.
         T = _where(active, T_next, T)
         T_best = _where(active, T_base, T_best)
-        r_best = _where(active, r_base, r_best)
-        if carry_J:
-            J_best = _where(active, J_base, J_best)
+        s_best = tuple(_where(active, x, y) for x, y in zip(s_base, s_best))
         if affine:
             ab_base = _where(accept, ab, ab_best)
             ab_next = _where(ok, ab_base + delta[:, 6:], ab_base)
             ab = _where(active, ab_next, ab)
             ab_best = _where(active, ab_base, ab_best)
-        valid_best = _where(active, v_base, valid_best)
         error = torch.where(active, err_base, error)
         lam = torch.where(active, lam_next, lam)
         k = k + active.long()
         done = torch.where(active, done_next, done)
         n_inlier = torch.where(active, n_next, n_inlier)
 
-    return LMState(
-        T=T_best, r_best=r_best, J=J_best if carry_J else J_const,
-        valid_best=valid_best, error=error, lam=lam, k=k, done=done,
-        n_inlier=n_inlier, ab=ab_best,
-    )
+    return _Best(T=T_best, ab=ab_best, state=s_best, error=error, lam=lam, k=k,
+                 done=done, n_inlier=n_inlier)
+
+
+def _intensity_residual(sampler, pts, ref_intensity, T):
+    """r = I_tgt - I_ref (0 where invalid) and validity at the points warped
+    by T, through a K2 sampler bound to the target's intensity plane."""
+    vals, ok = sampler(T)                                     # K2, C = 1
+    valid = pts.valid & ok
+    return torch.where(valid, vals[:, 0] - ref_intensity, 0.0), valid
+
+
+def _run_level(T0, ab0, residuals, intensity_residual, make_evaluator, J_const,
+               max_iters, eps, weight_kind, init_lambda, affine,
+               keep_residuals) -> LMState:
+    """One level's LM. The first evaluation gives the level's scale sigma0
+    (a median, so it needs every residual). Where the weight kind allows
+    and affine is off, that is `intensity_residual(T) -> (r, valid)` and the
+    iterations run fused (`make_evaluator(sigma0) -> LMEvaluator`); else
+    everything runs on `residuals(T, ab) -> (r, J or None, valid)`."""
+    fused = weight_kind in FUSED_KINDS and not affine
+    if fused:
+        sigma0 = mad_sigma(*intensity_residual(T0))
+        steps = _fused_steps(make_evaluator(sigma0), T0)
+    else:
+        first = residuals(T0, ab0)
+        sigma0 = mad_sigma(first[0], first[2])
+        steps = _plain_steps(residuals, first, sigma0, weight_kind, J_const)
+    best = _lm_loop(T0, ab0, *steps, max_iters, eps, init_lambda, affine)
+    common = dict(T=best.T, error=best.error, lam=best.lam, k=best.k, done=best.done,
+                  n_inlier=best.n_inlier, ab=best.ab)
+    if not fused:
+        r, valid = best.state[:2]
+        J = best.state[2] if len(best.state) == 3 else J_const
+        return LMState(r_best=r, J=J, valid_best=valid, abs_r=torch.abs(r).sum(-1),
+                       **common)
+    abs_r = best.state[0][:, LM_ABS_R]
+    if not keep_residuals:
+        return LMState(r_best=None, J=J_const, valid_best=None, abs_r=abs_r, **common)
+    r, J, valid = residuals(best.T, best.ab)
+    return LMState(r_best=r, J=J_const if J is None else J, valid_best=valid,
+                   abs_r=abs_r, **common)
 
 
 def _ab0(T0: torch.Tensor, ab0: torch.Tensor | None) -> torch.Tensor:
@@ -248,26 +329,51 @@ def lm_level(
     init_lambda: float = 1e-4,
     affine: bool = False,
     ab0: torch.Tensor | None = None,
+    keep_residuals: bool = True,
 ) -> LMState:
     """Forward-compositional LM at one pyramid level for B pairs.
 
     T0 (B, 4, 4); pts at this level's pixel scale; ref_intensity (B, N);
-    the target level's image and gradients (B, H, W), stacked once per level
-    for kernel K2. Each iteration samples all three target channels at the
-    warped points and rebuilds the Jacobian there. affine=True estimates
+    the target level's image and gradients (B, H, W), packed once per level
+    as texels. Each iteration samples all three target channels at the
+    warped points and rebuilds the Jacobian there: in one `lm_evaluate`
+    launch with Huber weights or none, through K2 (C = 3) and plain
+    operations with Tukey weights or affine=True. affine=True estimates
     (a, b) jointly: the state becomes [xi, a, b] with the two constant
-    columns (-I_ref, -1). Returns the best accepted state (`T`, `ab`)."""
-    stacked = _stack_target(image, grad_x, grad_y)
+    columns (-I_ref, -1). Returns the best accepted state (`T`, `ab`);
+    `r_best`, `J` and `valid_best` at that state cost one more evaluation on
+    the fused path and are None with keep_residuals=False."""
+    texels = pack_texels(image, grad_x, grad_y)
+    sampler = WarpSampler(texels, pts.p3d, cam, texels=True)
+    plane = WarpSampler(image[:, None], pts.p3d, cam)
 
-    def evaluate(T, ab):
-        r, J, valid = _residuals_stacked(T, pts, ref_intensity, stacked, cam)
+    def residuals(T, ab):
+        r, J, valid = _residuals_sampled(T, pts, ref_intensity, sampler, cam)
         if affine:
             r = _affine_residual(r, ref_intensity, ab, valid)
             J = torch.cat([J, _affine_columns(ref_intensity, valid)], dim=-1)
         return r, J, valid
 
-    return _lm_loop(T0, _ab0(T0, ab0), evaluate, max_iters, eps, weight_kind,
-                    init_lambda, affine)
+    def intensity_residual(T):
+        return _intensity_residual(plane, pts, ref_intensity, T)
+
+    def make_evaluator(sigma0):
+        return LMEvaluator(texels, pts.p3d, ref_intensity, pts.valid, sigma0, cam,
+                           weight_kind)
+
+    return _run_level(T0, _ab0(T0, ab0), residuals, intensity_residual, make_evaluator,
+                      None, max_iters, eps, weight_kind, init_lambda, affine,
+                      keep_residuals)
+
+
+def ic_jacobian(pts: TrackPoints, ref_grad_x, ref_grad_y, cam) -> torch.Tensor:
+    """The constant inverse-compositional Jacobian (B, N, 6), [v, w] order,
+    from the reference gradients (B, N) at the identity warp; 0 where the
+    point is invalid."""
+    Jp = cam.project_jacobian(pts.p3d)                        # (B, N, 2, 3)
+    g = ref_grad_x[..., None] * Jp[..., 0, :] + ref_grad_y[..., None] * Jp[..., 1, :]
+    Jw = torch.einsum("bnj,bnjk->bnk", g, -so3.hat(pts.p3d))
+    return torch.where(pts.valid[..., None], torch.cat([g, Jw], dim=-1), 0.0)
 
 
 def lm_level_ic(
@@ -284,6 +390,7 @@ def lm_level_ic(
     init_lambda: float = 1e-4,
     affine: bool = False,
     ab0: torch.Tensor | None = None,
+    keep_residuals: bool = True,
 ) -> LMState:
     """Inverse-compositional LM at one pyramid level for B pairs.
 
@@ -291,27 +398,33 @@ def lm_level_ic(
     reference gradients sampled per point, (B, N); image the target level
     (B, H, W). The Jacobian is built once from the reference gradients at
     the identity warp (with the constant affine columns when affine=True);
-    each iteration samples only the target intensity (kernel K2, C = 1).
-    The returned `J` is that constant Jacobian."""
+    each iteration samples only the target intensity: in one `lm_evaluate`
+    launch with Huber weights or none, through K2 (C = 1) and plain
+    operations with Tukey weights or affine=True. The returned `J` is that
+    constant Jacobian; `r_best` and `valid_best` cost one more K2 call on
+    the fused path and are None with keep_residuals=False."""
     valid_pts = pts.valid
-    Jp = cam.project_jacobian(pts.p3d)                        # (B, N, 2, 3)
-    g = ref_grad_x[..., None] * Jp[..., 0, :] + ref_grad_y[..., None] * Jp[..., 1, :]
-    Jw = torch.einsum("bnj,bnjk->bnk", g, -so3.hat(pts.p3d))
-    J = torch.where(valid_pts[..., None], torch.cat([g, Jw], dim=-1), 0.0)
+    J = J6 = ic_jacobian(pts, ref_grad_x, ref_grad_y, cam)
     if affine:
         J = torch.cat([J, _affine_columns(ref_intensity, valid_pts)], dim=-1)
-    target = image[:, None]                                   # (B, 1, H, W)
+    plane = WarpSampler(image[:, None], pts.p3d, cam)
 
-    def evaluate(T, ab):
-        vals, ok = warp_and_sample(target, pts.p3d, T, cam)
-        valid = valid_pts & ok
-        r = torch.where(valid, vals[:, 0] - ref_intensity, 0.0)
+    def intensity_residual(T):
+        return _intensity_residual(plane, pts, ref_intensity, T)
+
+    def residuals(T, ab):
+        r, valid = intensity_residual(T)
         if affine:
             r = _affine_residual(r, ref_intensity, ab, valid)
         return r, None, valid
 
-    return _lm_loop(T0, _ab0(T0, ab0), evaluate, max_iters, eps, weight_kind,
-                    init_lambda, affine, J_const=J)
+    def make_evaluator(sigma0):
+        return LMEvaluator(image, pts.p3d, ref_intensity, valid_pts, sigma0, cam,
+                           weight_kind, J_ref=J6)
+
+    return _run_level(T0, _ab0(T0, ab0), residuals, intensity_residual, make_evaluator,
+                      J, max_iters, eps, weight_kind, init_lambda, affine,
+                      keep_residuals)
 
 
 def track(
@@ -333,7 +446,7 @@ def track(
     (forward-compositional: target gradients at the warped points) samples
     the reference intensity at uv * 2^-l with kernel K3 (C = 1); mode "ic"
     (constant reference Jacobian) samples intensity and both gradients in
-    one K3 call (C = 3). Level 0 uses the values carried from selection when
+    one K3 call on the level's texels (C = 3). Level 0 uses the values carried from selection when
     `pts.gx0` is set. `max_iters` is one budget for all levels or one per
     level, coarse first. affine=True threads the brightness (a, b) coarse to
     fine like the pose and reports it in `TrackResult.affine`."""
@@ -356,10 +469,8 @@ def track(
             ref_int, ref_ok = pts.intensity, pts.valid
             ref_gx, ref_gy = pts.gx0, pts.gy0
         elif mode == "ic":
-            stack = torch.stack(
-                [ref.images[lvl], ref.grad_x[lvl], ref.grad_y[lvl]], dim=1
-            )
-            vals, ref_ok = cuda_bilinear_sample(stack, uv_l)
+            texels = pack_texels(ref.images[lvl], ref.grad_x[lvl], ref.grad_y[lvl])
+            vals, ref_ok = cuda_bilinear_sample(texels, uv_l, texels=True)
             ref_int, ref_gx, ref_gy = vals[:, 0], vals[:, 1], vals[:, 2]
         else:
             vals, ref_ok = cuda_bilinear_sample(ref.images[lvl][:, None], uv_l)
@@ -371,12 +482,14 @@ def track(
             out = lm_level_ic(
                 T, pts_l, ref_int, ref_gx, ref_gy, tgt.images[lvl], cam_l,
                 max_iters=lvl_iters, weight_kind=weight_kind, affine=affine, ab0=ab,
+                keep_residuals=False,
             )
         else:
             out = lm_level(
                 T, pts_l, ref_int, tgt.images[lvl], tgt.grad_x[lvl],
                 tgt.grad_y[lvl], cam_l, max_iters=lvl_iters,
                 weight_kind=weight_kind, affine=affine, ab0=ab,
+                keep_residuals=False,
             )
         T, ab = out.T, out.ab
         total_iters = total_iters + out.k
@@ -393,9 +506,7 @@ def track(
     if affine:
         r_g = _affine_residual(r_g, pts_l.intensity, ab, valid_g)
     e_init = torch.abs(r_g).sum(-1) / torch.clamp(valid_g.sum(-1), min=1)
-    e_final = torch.abs(out.r_best).sum(-1) / torch.clamp(
-        out.valid_best.sum(-1), min=1
-    )
+    e_final = out.abs_r / torch.clamp(out.n_inlier, min=1)
     jumped = e_final > e_init * 1.05
     return TrackResult(
         T=_where(jumped, T_start, T),

@@ -65,7 +65,7 @@ def weights(
     return torch.where(valid, w, 0.0)
 
 
-def robust_cost(
+def robust_cost_sum(
     residuals: torch.Tensor,
     valid: torch.Tensor,
     kind: WeightKind = WeightKind.HUBER,
@@ -73,11 +73,10 @@ def robust_cost(
     min_sigma: float = 1.0,
     sigma: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Mean rho(r / sigma) * sigma^2 over the valid entries -> (...,): the
-    M-estimator objective that the LM accept test compares."""
+    """Sum of rho(r / sigma) * sigma^2 over the valid entries -> (...,)."""
     if kind == WeightKind.NONE:
         c = 0.5 * residuals * residuals
-        return torch.where(valid, c, 0.0).sum(-1) / _count(valid)
+        return torch.where(valid, c, 0.0).sum(-1)
     if sigma is None:
         sigma = mad_sigma(residuals, valid)
     sigma = torch.clamp(sigma, min=min_sigma)[..., None]
@@ -96,4 +95,18 @@ def robust_cost(
     else:
         raise ValueError(kind)
     c = c * sigma * sigma
-    return torch.where(valid, c, 0.0).sum(-1) / _count(valid)
+    return torch.where(valid, c, 0.0).sum(-1)
+
+
+def robust_cost(
+    residuals: torch.Tensor,
+    valid: torch.Tensor,
+    kind: WeightKind = WeightKind.HUBER,
+    huber_k: float = 1.345,
+    min_sigma: float = 1.0,
+    sigma: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Mean rho(r / sigma) * sigma^2 over the valid entries -> (...,): the
+    M-estimator objective that the LM accept test compares."""
+    total = robust_cost_sum(residuals, valid, kind, huber_k, min_sigma, sigma)
+    return total / _count(valid)
