@@ -53,11 +53,47 @@ fails. Phases, one line each:
    share, kernel launches and the costliest operators per frame from the
    profiler over 5 frames.
 
-Then a JSON line of per-kernel results (launches on the offline and the
-live path; time, plain version's time, the card's bound for the same bytes
-and operations, and a library call's time where one computes the same
-function), the card's name and power limit, and, last,
-`{"ok": true, "device": {...}}`.
+10. Depth images: K3 with C = 1 on a TUM-encoded depth image (uint16, 5000
+   per metre, with holes, a depth step and last-column points) against its
+   plain version, bit for bit, at the live shape (1 x 480 x 640, 8,192
+   corner reads) and the offline shape (96 frames), timed beside its bound
+   and `grid_sample`; `_depth_at` on the card against the CPU; every kernel
+   against its plain version at `track_sequence`'s shapes (B = 1, 5 levels,
+   FC, track levels 3-0: K1 down to 30 x 40, K3, K2 and `lm_evaluate` for
+   one pair at every track level), as in phase 3b; the offline IC chunk and `track_sequence` (FC, sequential, 96 frames) with the
+   plane's depth frames (ATE <= 1 mm; the CPU's run of the first frames
+   within 1e-3 on se3.log); the live path with depth images
+   (`process_frame(depth=)`, all ok, ATE <= 2 mm). The monocular depth is
+   set wrong (1 where the plane is at 2), so only the depth images can give
+   these trajectories.
+11. The pipelined live loop: (a) the CUDA graph's replay against the eager
+   megastep on the same inputs, every output bit-equal; (b) the 96 frames
+   through `process_frame_async` + `flush`: frame ids in order, statuses
+   and keyframes equal to the CPU's pipelined run, poses within 1e-3, ATE
+   <= 2 mm and within 5 mm of the synchronous run's, at least 90 frames
+   through the graph, every kernel launched; (c) the relocalization
+   sequence pipelined: the failure is found at retirement, the frames in
+   flight are drained as lost, the loop re-enters the graph; statuses,
+   keyframes and poses equal to the CPU's pipelined run of the same frames
+   (1e-3), ATE <= 2 mm on each side of the drained frames; (d) frames/s,
+   per-frame time (median, p90; CUDA events), and from one profiled window
+   with event marks around it the device busy time, graph and kernel
+   launches per frame and idle share, beside phase 9's synchronous loop;
+   each kernel's launches in that window counted by its name in the
+   profile must equal what the wrappers counted (a replay runs no Python,
+   so the wrappers' counts on this path are added per replay).
+12. Rectification: 32 frames rendered with radtan distortion; every kernel
+   against its plain version at the cropped region of interest's shapes
+   (1 x 464 x 624 and its two halvings, no multiples of a 32 x 8 block), as
+   in phase 3b; the frames through the pipelined loop (region of interest and camera equal to the CPU run's,
+   ATE <= 2 cm, card vs CPU 1e-3) and, as 8-bit files in the EUROC layout,
+   through the CLI with `--euroc`.
+
+Then a JSON line of per-kernel results (launches on the offline, the live,
+the depth, the pipelined and the rectified path; time, plain version's
+time, the card's bound for the same bytes and operations, and a library
+call's time where one computes the same function), the card's name and
+power limit, and, last, `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -73,7 +109,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-K1_ATOL = 1e-4       # f32 gradients of [0, 255] images
+K1_ATOL = 0.0        # K1: bit-equal (rounded intrinsics in the plain version's order)
 SAMPLE_ATOL = 0.0    # K2/K3, planar and texels: bit-equal, masks equal
 # lm_evaluate against its plain version: both sum ~2048 f32 terms per pair,
 # the kernel in a tree, the plain version as bmm does, and the kernel's
@@ -107,6 +143,28 @@ LIVE_PROFILED_FRAMES = 5  # op-level tracing adds seconds to each profiled frame
 NOISE_FRAME = 50         # frames before it are the same in phases 6 and 7
 CLI_FRAMES = 32
 CLI_ATE_MAX = 2e-2       # m; JAX CPU on the same 32 8-bit frames: 0.011238 m
+DEPTH_PER_METRE = 5000.0     # TUM depth images
+DEPTH_CPU_FRAMES = 32        # the CPU tracks this prefix of the depth runs
+PIPE_MIN_GRAPH_FRAMES = 90   # of 96: all but the first go through the graph
+PIPE_VS_SYNC_ATE = 5e-3      # m, as tests/test_pipeline.py
+PIPE_PROFILED_FRAMES = 8
+# m, over the frames that are ok. At retirement the lost frame takes the last
+# retired pose and the frames in flight coast on it, so the trajectory keeps
+# the camera's motion over those frames as an offset (the JAX package's
+# rule); the synchronous run relocalizes one frame later (RELOC_ATE_MAX).
+# Frames 51-54 are drained while the camera moves 0.044 m, and a step of that
+# size after 55 of 96 frames is an aligned RMSE just above 0.02 m: phase 11c
+# prints it for the card and for the port's CPU run of the same frames. The
+# checks that decide are the frame-by-frame agreement with that CPU run and
+# LIVE_ATE_MAX on each side of the step; this bar only bounds the step.
+PIPE_RELOC_ATE_MAX = 3e-2
+# The kernels' names as the profiler reports them (substrings).
+KERNEL_SYMBOLS = {"scharr": "scharr_kernel", "warp_sample": "warp_sample_kernel",
+                  "bilinear_sample": "bilinear_sample_kernel",
+                  "lm_evaluate": "lm_evaluate_kernel"}
+RECT_FRAMES = 32
+RECT_DISTORTION = dict(k1=-0.28, k2=0.07, p1=2e-4, p2=1.8e-5)   # EUROC-like
+RECT_ATE_MAX = 2e-2
 
 
 def say(phase: str, msg: str) -> None:
@@ -566,20 +624,27 @@ def live_config():
     )
 
 
-def make_system(device):
+def make_system(device, raw=None, mono_depth=None):
+    """Configuration 1 on `device`; `raw` another raw camera than the bench's
+    (a distorted one), `mono_depth` another monocular depth."""
+    from dataclasses import replace
+
     from uwslam_tpu_torch import bench
     from uwslam_tpu_torch.camera import Calibration
     from uwslam_tpu_torch.system import SlamSystem
 
-    calib = Calibration(raw=bench.CAM, out_width=bench.CAM.width,
-                        out_height=bench.CAM.height)
-    return SlamSystem(calib, live_config(), device=device)
+    raw = bench.CAM if raw is None else raw
+    config = live_config()
+    if mono_depth is not None:
+        config = replace(config, tracker=replace(config.tracker, mono_depth=mono_depth))
+    calib = Calibration(raw=raw, out_width=raw.width, out_height=raw.height)
+    return SlamSystem(calib, config, device=device)
 
 
-def run_live(frames, device, n=None, events=False):
+def run_live(frames, device, n=None, events=False, depths=None, mono_depth=None):
     """Frames (N, H, W) through a fresh SlamSystem on `device` -> (system,
     states, per-frame ms from CUDA events or None)."""
-    system = make_system(device)
+    system = make_system(device, mono_depth=mono_depth)
     n = frames.shape[0] if n is None else n
     states, ms = [], []
     for i in range(n):
@@ -587,12 +652,45 @@ def run_live(frames, device, n=None, events=False):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-        states.append(system.process_frame(frames[i], timestamp=float(i)))
+        depth = None if depths is None else depths[i]
+        states.append(system.process_frame(frames[i], depth=depth, timestamp=float(i)))
         if events:
             b.record()
             b.synchronize()
             ms.append(a.elapsed_time(b))
     return system, states, (ms if events else None)
+
+
+def run_pipelined(frames, device, raw=None, events=False):
+    """Frames through `process_frame_async` + `flush` of a fresh SlamSystem ->
+    (system, ms between the ends of consecutive frames on the device or None)."""
+    system = make_system(device, raw=raw)
+    marks = []
+    for i in range(frames.shape[0]):
+        system.process_frame_async(frames[i], timestamp=float(i))
+        if events:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+    system.flush()
+    if not events:
+        return system, None
+    torch.cuda.synchronize()
+    return system, [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def counted(table, what: str, fn):
+    """Run fn() with every kernel's launch count set to 0 just before and
+    read just after -> (fn's result, {kernel: launches}); every kernel must
+    have launched."""
+    for k in table:
+        k["wrapper"].launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k["name"]: k["wrapper"].launches for k in table}
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on {what}: {missing}")
+    return out, launches
 
 
 def live_ate(system, poses, keep=None) -> float:
@@ -605,24 +703,24 @@ def live_ate(system, poses, keep=None) -> float:
     return ate_rmse(est[keep, :3, 3], gt[keep, :3, 3])
 
 
-def phase_parity_live(frames, cam, seed: int = 1):
-    """Kernels at the live path's B = 1 shapes against their plain versions.
+def phase_parity_live(ref, tgt, pts, cam, track_levels, what: str, describe: bool = True,
+                       seed: int = 1):
+    """Kernels at a path's B = 1 shapes against their plain versions: K1 on
+    every level of the pyramid `ref`; at each track level K3 (C = 1, the FC
+    reference pass), K2 (C = 1 and C = 3 texels) and `lm_evaluate` (FC) for
+    the pair (ref, tgt) with `ref`'s points `pts`; with describe=True K3 at
+    the descriptor taps of every level. `what` names the path in a failure.
     Returns ({kernel: max abs error}, what `time_pairs` takes: {kernel:
-    (kernel, plain) callables at the largest live shape}, their bounds and
-    the library calls)."""
+    (kernel, plain) callables at the largest shape}, their bounds and the
+    library calls)."""
     from uwslam_tpu_torch import ops
     from uwslam_tpu_torch.features import detect_multiscale
-    from uwslam_tpu_torch.image.pyramid import build_pyramid
     from uwslam_tpu_torch.lie import se3
-    from uwslam_tpu_torch.tracking.points import TrackPoints, topk_gradient_points
+    from uwslam_tpu_torch.tracking.points import TrackPoints
     from uwslam_tpu_torch.tracking.robust import WeightKind, mad_sigma
 
-    cfg = live_config().tracker
-    dev = frames.device
-    ref = build_pyramid(frames[0], levels=cfg.pyramid_levels)
-    tgt = build_pyramid(frames[1], levels=cfg.pyramid_levels)
-    pts = topk_gradient_points(ref.images[0], ref.grad_mag[0], cam,
-                               num_points=cfg.num_points, mono_z=cfg.mono_depth)
+    dev = pts.uv.device
+    frame = ref.images[0]                                   # (1, H, W)
     gen = torch.Generator().manual_seed(seed)
     T_move = se3.exp(0.02 * torch.randn(1, 6, generator=gen)).to(dev)
     err = {"scharr": 0.0, "warp_sample": 0.0, "bilinear_sample": 0.0, "lm_evaluate": 0.0}
@@ -633,29 +731,32 @@ def phase_parity_live(frames, cam, seed: int = 1):
         for kk, pp, nm in zip(k, p, ("gx", "gy", "gm")):
             e = float((kk - pp).abs().max())
             if not e <= K1_ATOL:
-                raise AssertionError(f"scharr B=1 level {lvl} {nm}: {e} > {K1_ATOL}")
+                raise AssertionError(f"scharr {what} level {lvl} {nm}: {e} > {K1_ATOL}")
             err["scharr"] = max(err["scharr"], e)
-    for lvl in cfg.track_levels:
+    for lvl in track_levels:
         cam_l = cam.scaled(lvl)
         planes = (tgt.images[lvl], tgt.grad_x[lvl], tgt.grad_y[lvl])
         stacked, texels = torch.stack(planes, dim=1), ops.pack_texels(*planes)
         plane = tgt.images[lvl][:, None]
         p3d_edge = pts.p3d.clone()
         p3d_edge[0, :64] = edge_points(cam_l, 64).to(dev)
-        ref_int, ref_ok = ops.cuda_bilinear_sample(ref.images[lvl][:, None],
-                                                   pts.uv * (1.0 / (1 << lvl)))
+        uv_l = pts.uv * (1.0 / (1 << lvl))
+        ref_int, ref_ok = k = ops.cuda_bilinear_sample(ref.images[lvl][:, None], uv_l)
+        err["bilinear_sample"] = max(err["bilinear_sample"], compare(
+            k, ops.bilinear_sample_plain(ref.images[lvl][:, None], uv_l), SAMPLE_ATOL,
+            f"bilinear_sample {what} C=1 reference level {lvl}"))
         for T, p3d in ((torch.eye(4, device=dev)[None], p3d_edge), (T_move, pts.p3d)):
             p = ops.warp_and_sample_plain(stacked, p3d, T, cam_l)
             k = ops.warp_and_sample(texels, p3d, T, cam_l, texels=True)
             err["warp_sample"] = max(err["warp_sample"], compare(
-                k, p, SAMPLE_ATOL, f"warp_sample B=1 texels level {lvl}"))
+                k, p, SAMPLE_ATOL, f"warp_sample {what} texels level {lvl}"))
             k = ops.warp_and_sample(plane, p3d, T, cam_l)
             err["warp_sample"] = max(err["warp_sample"], compare(
-                k, (p[0][:, :1], p[1]), SAMPLE_ATOL, f"warp_sample B=1 C=1 level {lvl}"))
+                k, (p[0][:, :1], p[1]), SAMPLE_ATOL, f"warp_sample {what} C=1 level {lvl}"))
             pts_l = TrackPoints(uv=pts.uv, p3d=p3d, intensity=ref_int[:, 0],
                                 valid=pts.valid & ref_ok)
             err["lm_evaluate"] = max(err["lm_evaluate"], check_lm_evaluate(
-                texels, pts_l, T, cam_l, f"lm_evaluate FC B=1 level {lvl}"))
+                texels, pts_l, T, cam_l, f"lm_evaluate FC {what} level {lvl}"))
         if lvl == 0:
             q = pts.p3d
             sampler = ops.WarpSampler(plane, q, cam_l)
@@ -676,6 +777,11 @@ def phase_parity_live(frames, cam, seed: int = 1):
             bounds["warp_sample"] = bound_sampler(ok, 1, 12)
             bounds["warp_sample_texels"] = bound_sampler(ok, 3, 12)
             bounds["lm_evaluate"] = bound_lm_evaluate(pts_l.valid, ok, fc=True)
+    calls["scharr"] = (lambda: ops.scharr_gradients_batched(frame),
+                       lambda: ops.scharr_plain(frame))
+    bounds["scharr"] = bound_scharr(frame)
+    if not describe:
+        return err, (calls, bounds, {})
     fcfg = live_config().features
     kps = detect_multiscale([g[0] for g in ref.grad_x], [g[0] for g in ref.grad_y],
                             per_level=fcfg.per_level, levels=fcfg.detect_levels)
@@ -689,7 +795,7 @@ def phase_parity_live(frames, cam, seed: int = 1):
         k = ops.cuda_bilinear_sample(image, uv)
         p = ops.bilinear_sample_plain(image, uv)
         err["bilinear_sample"] = max(err["bilinear_sample"], compare(
-            k, p, SAMPLE_ATOL, f"bilinear_sample B=1 C=1 describe level {lvl}"))
+            k, p, SAMPLE_ATOL, f"bilinear_sample {what} C=1 describe level {lvl}"))
         if lvl == 0:
             calls["bilinear_sample"] = (
                 lambda i=image, q=uv: ops.cuda_bilinear_sample(i, q),
@@ -697,9 +803,6 @@ def phase_parity_live(frames, cam, seed: int = 1):
             )
             bounds["bilinear_sample"] = bound_sampler(k[1], 1, 8)
             library = {"bilinear_sample": grid_sample_call(image, uv)}
-    calls["scharr"] = (lambda f=frames[:1]: ops.scharr_gradients_batched(f),
-                       lambda f=frames[:1]: ops.scharr_plain(f))
-    bounds["scharr"] = bound_scharr(frames[:1])
     return err, (calls, bounds, library)
 
 
@@ -871,11 +974,396 @@ def phase_live_timing(frames, calls, frame_ms):
     }
 
 
+def tum_depth(cam, poses, plane_z: float = 2.0):
+    """The plane's exact depth at each pose as TUM depth images: the uint16
+    values (5000 per metre) as f32, which holds them exactly."""
+    from uwslam_tpu_torch.utils.synthetic import plane_depth
+
+    return torch.round(plane_depth(cam, poses, plane_z) * DEPTH_PER_METRE).clamp(0, 65535)
+
+
+def corner_coordinates(depth, uv):
+    """The (B, 4 N, 2) corner reads `_depth_at` hands kernel K3 for points uv
+    (B, N, 2) on depth images (B, H, W)."""
+    B, H, W = depth.shape
+    u0 = torch.clamp(torch.floor(uv[..., 0]), 0, W - 2)
+    v0 = torch.clamp(torch.floor(uv[..., 1]), 0, H - 2)
+    corners = [torch.stack([u0 + du, v0 + dv], dim=-1)
+               for du, dv in ((0, 0), (1, 0), (0, 1), (1, 1))]
+    return torch.stack(corners, dim=1).reshape(B, -1, 2)
+
+
+def phase_depth_kernel(depths, pts):
+    """K3 (C = 1) on depth images with holes, a step and last-column and
+    last-row points against its plain version, bit for bit, at the live
+    (B = 1) and offline (B = 96) shapes; `_depth_at` on the card against the
+    CPU; times, bounds and `grid_sample` per shape."""
+    from uwslam_tpu_torch import ops
+    from uwslam_tpu_torch.tracking.points import _depth_at
+
+    awkward = depths.clone()
+    H, W = awkward.shape[1:]
+    awkward[:, :, W // 2:] = torch.round(awkward[:, :, W // 2:] * 1.6)   # a depth step
+    awkward[:, 100:140, 80:160] = 0.0                                     # holes
+    awkward[:, 300, 400] = 0.0
+    uv = pts.uv.clone()
+    edge = torch.tensor([[W - 1, 10.0], [W - 1, 57.25], [W - 1, H - 1], [33.5, H - 1],
+                         [0.0, 0.0], [W // 2 - 0.5, 50.0], [W // 2, 50.0], [79.5, 120.0],
+                         [399.5, 299.5], [W - 1 + 1e-3, 5.0], [-1e-3, 5.0]], device=uv.device)
+    uv[:, : len(edge)] = edge
+    errs, pairs, bounds, library = {}, {}, {}, {}
+    for name, sl in (("live", slice(0, 1)), ("offline", slice(None))):
+        image = awkward[sl][:, None].contiguous()
+        corners = corner_coordinates(awkward[sl], uv[sl])
+        k = ops.cuda_bilinear_sample(image, corners)
+        errs[name] = compare(k, ops.bilinear_sample_plain(image, corners), SAMPLE_ATOL,
+                             f"bilinear_sample on depth, {name} shape")
+        if not bool(k[1].all()) or not bool((k[0] == 0).any()):
+            raise AssertionError("corner reads must all be in bounds and meet holes")
+        pairs[name] = (lambda i=image, q=corners: ops.cuda_bilinear_sample(i, q),
+                       lambda i=image, q=corners: ops.bilinear_sample_plain(i, q))
+        bounds[name] = bound_sampler(k[1], 1, 8)
+        library[name] = grid_sample_call(image, corners)
+    d, ok = _depth_at(awkward, uv, 1.0)
+    d_cpu, ok_cpu = _depth_at(awkward.cpu(), uv.cpu(), 1.0)
+    if not torch.equal(ok.cpu(), ok_cpu):
+        raise AssertionError("_depth_at: the card's validity differs from the CPU's")
+    want = [True] * 5 + [False, True, False, False, False, False]
+    if ok[0, : len(edge)].tolist() != want:
+        raise AssertionError(f"_depth_at at the edge points: {ok[0, :len(edge)].tolist()}")
+    errs["depth_at_vs_cpu"] = float((d.cpu() - d_cpu).abs().max())
+    if not errs["depth_at_vs_cpu"] <= 1e-6:
+        raise AssertionError(f"_depth_at differs from the CPU by {errs['depth_at_vs_cpu']} m")
+    errs["valid_share"] = float(ok.float().mean())
+    return errs, time_pairs(pairs, bounds, library)
+
+
+def phase_depth_paths(frames, poses, depths, table):
+    """The offline IC chunk, `track_sequence` (FC) and the live path with the
+    plane's depth frames and a wrong monocular depth (1, the plane is at 2)."""
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.tracking.sequence import SequenceTracker
+
+    out = {}
+    n_cpu = DEPTH_CPU_FRAMES
+    trackers = {
+        "chunk_ic": (bench.make_tracker(bench.CAM), False),
+        "track_sequence_fc": (SequenceTracker(
+            bench.CAM, levels=bench.LEVELS, track_levels=bench.TRACK_LEVELS,
+            num_points=bench.NUM_POINTS, max_iters=bench.ITERS, mode="fc"), True),
+    }
+    for name, (tracker, sequential) in trackers.items():
+        t0 = time.perf_counter()
+        (T_rel, inliers, _), launches = counted(table, name, lambda: tracker(
+            frames, mono_z=1.0, depth_frames=depths, sequential=sequential))
+        card_s = time.perf_counter() - t0
+        ate = bench.trajectory_ate(T_rel, poses)
+        if not ate <= ATE_MAX:
+            raise AssertionError(f"{name} with depth frames: ATE {ate} m > {ATE_MAX} m")
+        T_cpu, _, _ = tracker(frames[:n_cpu].cpu(), mono_z=1.0,
+                              depth_frames=depths[:n_cpu].cpu(), sequential=sequential)
+        dev_cpu = float((se3.log(T_rel[: n_cpu - 1].cpu()) - se3.log(T_cpu)).abs().max())
+        if not dev_cpu <= T_REL_ATOL:
+            raise AssertionError(f"{name}: card vs CPU se3.log differs by {dev_cpu}")
+        out[name] = {"ate": ate, "card_vs_cpu": dev_cpu, "cpu_frames": n_cpu,
+                     "min_inliers": int(inliers.min()), "launches": launches,
+                     "card_s": round(card_s, 2)}
+    t0 = time.perf_counter()
+    (system, states, _), launches = counted(table, "the live RGB-D path", lambda: run_live(
+        frames, frames.device, depths=depths, mono_depth=1.0))
+    bad = [(s.frame_id, s.status) for s in states if s.status != "ok"]
+    if bad:
+        raise AssertionError(f"live RGB-D frames not ok: {bad[:10]}")
+    ate = live_ate(system, poses)
+    if not ate <= LIVE_ATE_MAX:
+        raise AssertionError(f"live RGB-D ATE {ate} m > {LIVE_ATE_MAX} m")
+    if system.graph_replays:
+        raise AssertionError("frames with depth images must take the synchronous path")
+    out["live_rgbd"] = {"ate": ate, "keyframes": int(sum(s.is_keyframe for s in states)),
+                        "launches": launches, "card_s": round(time.perf_counter() - t0, 2)}
+    return out
+
+
+def phase_graph_vs_eager(frames, n: int = 4):
+    """Each of the first n pipelined frames: the graph's replay against the
+    eager megastep on the same inputs, every output bit-equal."""
+    from uwslam_tpu_torch.ops.graph import tree_leaves
+
+    system = make_system(frames.device)
+    system.process_frame(frames[0], timestamp=0.0)
+    eager = system._build_step_plain()
+    compared = 0
+    for i in range(1, n + 1):
+        prev_pyr, prev_pts, _ = system._prev
+        want = eager(frames[i], prev_pyr, prev_pts, system._velocity, system._T_wc,
+                     system.keyframes.latest.T_wc, system._eye)
+        system.process_frame_async(frames[i], timestamp=float(i))
+        rec = system._pipe_queue[-1]
+        got = (rec["pyr"], rec["pts"], system._velocity, system._T_wc, rec["diag"])
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"frame {i}: graph replay differs from the eager megastep by "
+                    f"{float((a.float() - b.float()).abs().max())}")
+            compared += 1
+    system.flush()
+    if system.graph_replays != n:
+        raise AssertionError(f"{system.graph_replays} graph replays, expected {n}")
+    return {"frames": n, "tensors_bit_equal": compared}
+
+
+def states_vs_cpu(card, cpu, what: str) -> float:
+    ids = [s.frame_id for s in card.trajectory]
+    if ids != list(range(len(ids))):
+        raise AssertionError(f"{what}: frame ids out of order: {ids}")
+    return card_vs_cpu(card.trajectory, cpu.trajectory, what)
+
+
+def phase_pipelined(frames, poses, table, sync_ate: float):
+    """96 frames through the pipelined loop on the card with fresh launch
+    counts, against the CPU's pipelined run and the synchronous run's ATE."""
+    t0 = time.perf_counter()
+    (system, frame_ms), launches = counted(table, "the pipelined path", lambda: run_pipelined(
+        frames, frames.device, events=True))
+    card_s = time.perf_counter() - t0
+    n = frames.shape[0]
+    if len(system.trajectory) != n:
+        raise AssertionError(f"{len(system.trajectory)} states for {n} frames")
+    if system.graph_replays < PIPE_MIN_GRAPH_FRAMES:
+        raise AssertionError(f"only {system.graph_replays} of {n} frames went through the "
+                             f"graph, expected at least {PIPE_MIN_GRAPH_FRAMES}")
+    bad = [(s.frame_id, s.status) for s in system.trajectory if s.status != "ok"]
+    if bad:
+        raise AssertionError(f"pipelined frames not ok: {bad[:10]}")
+    ate = live_ate(system, poses)
+    if not ate <= LIVE_ATE_MAX or not abs(ate - sync_ate) <= PIPE_VS_SYNC_ATE:
+        raise AssertionError(f"pipelined ATE {ate} m (synchronous {sync_ate} m)")
+    t0 = time.perf_counter()
+    cpu, _ = run_pipelined(frames.cpu(), "cpu")
+    dev_cpu = states_vs_cpu(system, cpu, "pipelined loop")
+    return {
+        "launches": launches, "graph_replays": system.graph_replays, "ate": ate,
+        "sync_ate": sync_ate, "card_vs_cpu": dev_cpu,
+        "keyframes": [s.frame_id for s in system.trajectory if s.is_keyframe],
+        "card_s": round(card_s, 2), "cpu_s": round(time.perf_counter() - t0, 2),
+    }, frame_ms
+
+
+def phase_pipelined_reloc(noisy, poses):
+    """The relocalization sequence through the pipelined loop, on the card
+    and on the CPU: statuses, keyframes and poses must agree frame by frame
+    (`states_vs_cpu`), which holds the late failure, the drain and the
+    re-entry to the port's CPU run; the ATE bars come second."""
+    system, _ = run_pipelined(noisy, noisy.device)
+    t0 = time.perf_counter()
+    cpu, _ = run_pipelined(noisy.cpu(), "cpu")
+    cpu_s = time.perf_counter() - t0
+    dev_cpu = states_vs_cpu(system, cpu, "pipelined relocalization run")
+    status = [s.status for s in system.trajectory]
+    first_bad = next(i for i, st in enumerate(status) if st != "ok")
+    last_bad = max(i for i, st in enumerate(status) if st != "ok")
+    if first_bad not in (NOISE_FRAME, NOISE_FRAME + 1):
+        raise AssertionError(f"first frame not ok is {first_bad}: {status[first_bad]}")
+    drained = status[first_bad + 1: last_bad + 1]
+    if not drained or set(drained) != {"lost"} or len(drained) > 2 * system._pipe_batch + 1:
+        raise AssertionError(f"frames drained after the failure: {drained}")
+    if system._pipe_broken or set(status[last_bad + 1:]) != {"ok"}:
+        raise AssertionError("the loop did not re-enter after the drain")
+    if system.graph_replays < len(status) - len(drained) - 4:
+        raise AssertionError(f"only {system.graph_replays} frames went through the graph")
+    keep = np.array([st == "ok" for st in status])
+    ate = live_ate(system, poses, keep)
+    if not ate <= PIPE_RELOC_ATE_MAX:
+        raise AssertionError(f"pipelined relocalization run ATE {ate} m > {PIPE_RELOC_ATE_MAX}")
+    # Each side of the step alone is an ordinary tracked trajectory.
+    index = np.arange(len(status))
+    sides = {"before": live_ate(system, poses, index < first_bad),
+             "after": live_ate(system, poses, index > last_bad)}
+    for side, side_ate in sides.items():
+        if not side_ate <= LIVE_ATE_MAX:
+            raise AssertionError(f"ATE {side} the drained frames {side_ate} m > {LIVE_ATE_MAX}")
+    est = np.stack([s.T_wc for s in system.trajectory])[last_bad + 2:]
+    gt = torch.linalg.inv(poses.cpu()).numpy()[last_bad + 2:]
+    step_err = float(np.abs(np.diff(est[:, :3, 3], axis=0) - np.diff(gt[:, :3, 3], axis=0)).max())
+    if not step_err <= 5e-3:
+        raise AssertionError(f"per-frame motion after the re-entry is off by {step_err} m")
+    return {"first_not_ok": [first_bad, status[first_bad]], "drained_as_lost": len(drained),
+            "re_entered_at": last_bad + 1, "graph_replays": system.graph_replays,
+            "ate_over_ok_frames": ate, "ate_over_ok_frames_cpu": live_ate(cpu, poses, keep),
+            "ate_before": sides["before"], "ate_after": sides["after"],
+            "card_vs_cpu": dev_cpu, "step_err_after": step_err, "cpu_s": round(cpu_s, 2)}
+
+
+def phase_pipelined_timing(frames, frame_ms, sync: dict, table):
+    """The pipelined loop's frames/s and per-frame time after the warm-up
+    frames (CUDA events at the end of each call of phase 11b's run; the host
+    never waits for the frame it has just dispatched). Then one fresh system:
+    a steady window of frames under the profiler with event marks around it,
+    which gives, from that one window, the device busy time, the graph
+    launches, every device launch and the idle share; and each kernel's
+    launches counted by its name in the profile, which must equal what the
+    wrappers counted over the window (`CapturedStep` adds a remembered count
+    per replay: this is the measurement that holds it). Beside phase 9's
+    synchronous loop. Tracing each of a graph's kernels slows the window
+    down, so its idle share is an upper bound; `idle_share_vs_unprofiled`
+    divides the same busy time by phase 11b's mean frame time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steady = frame_ms[LIVE_WARMUP:]
+    system = make_system(frames.device)
+    for i in range(LIVE_WARMUP):
+        system.process_frame_async(frames[i], timestamp=float(i))
+    torch.cuda.synchronize()
+    reps = PIPE_PROFILED_FRAMES
+    replays_before = system.graph_replays
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for k in table:
+        k["wrapper"].launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for i in range(LIVE_WARMUP, LIVE_WARMUP + reps):
+            system.process_frame_async(frames[i], timestamp=float(i))
+        end.record()
+        torch.cuda.synchronize()
+    counted_by_wrappers = {k["name"]: k["wrapper"].launches for k in table}
+    window_ms = start.elapsed_time(end) / reps
+    replays = system.graph_replays - replays_before
+    if replays != reps:
+        raise AssertionError(f"{replays} of the {reps} profiled frames went through the graph")
+    (step,) = system._steps.values()
+    system.flush()
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    if not busy_ms > 0:
+        raise AssertionError("the profiler saw no device time in the pipelined window")
+    seen = {name: sum(e.count for e in kernels if symbol in e.key)
+            for name, symbol in KERNEL_SYMBOLS.items()}
+    if seen != counted_by_wrappers or not all(seen.values()):
+        raise AssertionError(f"launches in the profiled window: the profiler saw {seen} by "
+                             f"kernel name, the wrappers counted {counted_by_wrappers}")
+    graph_launches = sum(e.count for e in averages if e.key == "cudaGraphLaunch") / reps
+    return {
+        "frames_per_s": len(steady) / (sum(steady) / 1e3),
+        "frame_ms_median": statistics.median(steady),
+        "frame_ms_p90": float(np.percentile(steady, 90)),
+        "profiled_window": {
+            "frames": reps, "ms_per_frame": window_ms,
+            "device_busy_ms_per_frame": busy_ms,
+            "idle_share": 1.0 - busy_ms / window_ms,
+            "device_launches_per_frame": sum(e.count for e in kernels) / reps,
+            "graph_launches_per_frame": graph_launches,
+            "kernel_launches_seen_by_name": seen,
+            "kernel_launches_counted": counted_by_wrappers,
+            "kernel_launches_per_replay_at_capture": dict(zip(
+                (k["name"] for k in table), step.kernel_launches)),
+        },
+        "idle_share_vs_unprofiled": 1.0 - busy_ms / statistics.mean(steady),
+        "synchronous_same_run": {k: sync[k] for k in (
+            "frames_per_s", "latency_ms_median", "latency_ms_p90",
+            "device_busy_ms_per_frame", "idle_share", "launches_per_frame")},
+    }
+
+
+def write_euroc_dataset(frames, poses, raw, root: Path):
+    """8-bit PGM frames in the EUROC layout (mav0/cam0/data/<ns>.pgm), its
+    ground-truth CSV and a calibration XML with the radtan coefficients."""
+    from uwslam_tpu_torch.lie import se3
+
+    data = root / "mav0" / "cam0" / "data"
+    data.mkdir(parents=True)
+    imgs = frames.clamp(0, 255).to(torch.uint8).cpu().numpy()
+    q, t = (x.numpy() for x in se3.to_quaternion_translation(se3.inverse(poses.cpu())))
+    rows = ["#timestamp,px,py,pz,qw,qx,qy,qz\n"]
+    for i, img in enumerate(imgs):
+        ns = int(1e9 * (1.0 + 0.05 * i))
+        h, w = img.shape
+        (data / f"{ns}.pgm").write_bytes(f"P5\n{w} {h}\n255\n".encode() + img.tobytes())
+        rows.append(f"{ns},{t[i, 0]},{t[i, 1]},{t[i, 2]},"
+                    f"{q[i, 0]},{q[i, 1]},{q[i, 2]},{q[i, 3]}\n")
+    (root / "gt.csv").write_text("".join(rows))
+    (root / "calib.xml").write_text(f"""<?xml version="1.0"?>
+<opencv_storage>
+<in_width>{raw.width}</in_width><in_height>{raw.height}</in_height>
+<out_width>{raw.width}</out_width><out_height>{raw.height}</out_height>
+<calibration_values type_id="opencv-matrix"><rows>1</rows><cols>4</cols>
+<dt>f</dt><data>{raw.fx} {raw.fy} {raw.cx} {raw.cy}</data></calibration_values>
+<rectification type_id="opencv-matrix"><rows>1</rows><cols>4</cols>
+<dt>f</dt><data>{raw.k1} {raw.k2} {raw.p1} {raw.p2}</data></rectification>
+</opencv_storage>
+""")
+    return root / "mav0", root / "calib.xml", root / "gt.csv"
+
+
+def run_cli(argv, what: str) -> dict:
+    """The port's CLI in this process; it must exit 0 and print its ATE."""
+    from uwslam_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    m = re.search(r"ATE RMSE \(Sim3-aligned\): ([0-9.eE+-]+) m", buf.getvalue())
+    if rc != 0 or m is None:
+        raise AssertionError(f"CLI {what}: exit {rc}, output {buf.getvalue()!r}")
+    return {"ate": float(m.group(1)), "s": round(time.perf_counter() - t0, 2)}
+
+
+def phase_rectification(poses, table):
+    """Distorted frames through the pipelined loop on the card and the CPU,
+    and through the CLI with --euroc."""
+    from dataclasses import replace
+
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.utils.synthetic import render_plane_view_distorted
+
+    raw = replace(bench.CAM, **RECT_DISTORTION)
+    poses = poses[:RECT_FRAMES]
+    frames = render_plane_view_distorted(raw, poses, bench.PLANE_Z)
+    # The kernels at this path's shapes first: the cropped region of interest
+    # is no multiple of the kernels' blocks and its rows have another stride.
+    probe = make_system(frames.device, raw=raw)
+    pyrs = [probe._ingest_pyramid(frames[i]) for i in (0, 1)]
+    shapes = [list(im.shape[1:]) for im in pyrs[0].images]
+    if all(w % 32 == 0 and h % 8 == 0 for h, w in shapes):
+        raise AssertionError(f"the rectified levels {shapes} do not test a ragged block")
+    parity, _ = phase_parity_live(*pyrs, probe._select_points(pyrs[0]), probe.cam,
+                                  probe.config.tracker.track_levels, "rectified B=1")
+    del probe, pyrs
+    (system, _), launches = counted(table, "the rectified path", lambda: run_pipelined(
+        frames, frames.device, raw=raw))
+    cpu, _ = run_pipelined(frames.cpu(), "cpu", raw=raw)
+    if system._roi != cpu._roi or system.cam != cpu.cam:
+        raise AssertionError(f"ROI or camera differ: card {system._roi} {system.cam}, "
+                             f"CPU {cpu._roi} {cpu.cam}")
+    if system._rect_map is None or system._roi[2:] == (raw.width, raw.height):
+        raise AssertionError("the distorted calibration did not rectify and crop")
+    if system.graph_replays != RECT_FRAMES - 1:
+        raise AssertionError(f"{system.graph_replays} rectified frames went through the graph")
+    dev_cpu = states_vs_cpu(system, cpu, "rectified pipelined loop")
+    ate = live_ate(system, poses)
+    if not ate <= RECT_ATE_MAX:
+        raise AssertionError(f"rectified ATE {ate} m > {RECT_ATE_MAX} m")
+    with tempfile.TemporaryDirectory() as tmp:
+        mav, calib, gt = write_euroc_dataset(frames, poses, raw, Path(tmp))
+        cli = run_cli(["-d", str(mav), "--euroc", "-c", str(calib), "--euroc-gt", str(gt),
+                       "--levels", "3", "--track-levels", "1,0", "--mono-depth", "2.0",
+                       "--platform", "cuda", "--trajectory-out", str(Path(tmp) / "est.txt")],
+                      "--euroc")
+    if not cli["ate"] <= RECT_ATE_MAX:
+        raise AssertionError(f"CLI --euroc: ATE {cli['ate']} m > {RECT_ATE_MAX} m")
+    return {"parity_max_abs_err": parity, "parity_level_shapes": shapes,
+            "roi": list(system._roi), "ate": ate, "card_vs_cpu": dev_cpu,
+            "graph_replays": system.graph_replays, "launches": launches, "cli_euroc": cli}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card is visible; nothing was run")
     from uwslam_tpu_torch import bench
-    from uwslam_tpu_torch.image.pyramid import build_pyramid_batched
+    from uwslam_tpu_torch.image.pyramid import build_pyramid, build_pyramid_batched
     from uwslam_tpu_torch.ops import _lib
     from uwslam_tpu_torch.tracking.points import topk_gradient_points
 
@@ -921,7 +1409,13 @@ def main() -> None:
         f"idle share {1 - busy_ms / (chunk_s * 1e3):.3f}); per call: "
         + json.dumps(times) + f"; {gpu}; {time.perf_counter() - t0:.1f} s")
 
-    errs_live, live_calls = phase_parity_live(frames, cam)
+    lcfg = live_config().tracker
+    live_pyrs = [build_pyramid(frames[i], levels=lcfg.pyramid_levels) for i in (0, 1)]
+    live_pts = topk_gradient_points(live_pyrs[0].images[0], live_pyrs[0].grad_mag[0], cam,
+                                    num_points=lcfg.num_points, mono_z=lcfg.mono_depth)
+    errs_live, live_calls = phase_parity_live(*live_pyrs, live_pts, cam, lcfg.track_levels,
+                                              "B=1")
+    del live_pyrs
     torch.cuda.synchronize()
     say("3b parity (live shapes)", "max abs error vs plain: " + json.dumps(errs_live))
 
@@ -945,13 +1439,50 @@ def main() -> None:
         raise AssertionError(f"{live_times['launches_per_frame']:.0f} kernel launches per "
                              f"live frame, not below {MAX_LAUNCHES_PER_FRAME}")
 
+    t0 = time.perf_counter()
+    depths = tum_depth(cam, poses)
+    depth_errs, depth_times = phase_depth_kernel(depths, pts)
+    say("10 depth (kernel)", json.dumps(depth_errs) + "; per call: " + json.dumps(depth_times)
+        + f"; {gpu}")
+    seq_pyrs = [build_pyramid(frames[i], levels=bench.LEVELS) for i in (0, 1)]
+    seq_pts = topk_gradient_points(seq_pyrs[0].images[0], seq_pyrs[0].grad_mag[0], cam,
+                                   depth_image=depths[:1], num_points=bench.NUM_POINTS,
+                                   mono_z=1.0)
+    errs_seq, _ = phase_parity_live(*seq_pyrs, seq_pts, cam, bench.TRACK_LEVELS,
+                                    "track_sequence B=1", describe=False)
+    del seq_pyrs
+    say("10 depth (parity at track_sequence's shapes: B = 1, 5 levels, FC)",
+        "max abs error vs plain: " + json.dumps(errs_seq))
+    depth_paths = phase_depth_paths(frames, poses, depths, table)
+    say("10 depth (paths)", json.dumps(depth_paths) + f"; {time.perf_counter() - t0:.1f} s")
+    del depths
+
+    t0 = time.perf_counter()
+    say("11a graph vs eager", json.dumps(phase_graph_vs_eager(frames)))
+    pipelined, pipe_ms = phase_pipelined(frames, poses, table, live["ate"])
+    say("11b pipelined loop", json.dumps(pipelined))
+    say("11c pipelined relocalization", json.dumps(phase_pipelined_reloc(noisy, poses)))
+    pipe_times = phase_pipelined_timing(frames, pipe_ms, live_times, table)
+    say("11d pipelined timing", json.dumps(pipe_times) + f"; {gpu}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rectified = phase_rectification(poses, table)
+    say("12 rectification", json.dumps(rectified) + f"; {time.perf_counter() - t0:.1f} s")
+
     live_k = live_times["kernels_at_live_shapes"]
-    print(json.dumps({"kernels": [
+    depth_launches = {k["name"]: sum(depth_paths[path]["launches"][k["name"]]
+                                     for path in depth_paths) for k in table}
+    kernels = [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"],
          "launches": main_path["launches"][k["name"]],
          "launches_live": live["launches"][k["name"]],
-         "max_abs_err": max(errs[k["name"]], errs_live[k["name"]]),
+         "launches_depth": depth_launches[k["name"]],
+         "launches_pipelined": pipelined["launches"][k["name"]],
+         "launches_rectified": rectified["launches"][k["name"]],
+         "max_abs_err": max(e[k["name"]] for e in (
+             errs, errs_live, errs_seq, rectified["parity_max_abs_err"])),
          "ms": times[k["name"]]["device_ms"],
          "plain_ms": times[k["name"]]["plain_device_ms"],
          "bound_ms": times[k["name"]]["bound_ms"],
@@ -962,7 +1493,16 @@ def main() -> None:
          "bound_ms_live": live_k[k["name"]]["bound_ms"],
          "library_ms_live": live_k[k["name"]]["library_ms"]}
         for k in table
-    ]}))
+    ]
+    sampler = next(k for k in kernels if k["name"] == "bilinear_sample")
+    sampler["max_abs_err"] = max(sampler["max_abs_err"], depth_errs["live"],
+                                 depth_errs["offline"])
+    for shape, t in depth_times.items():       # K3 with C = 1 on depth images
+        sampler.update({f"ms_depth_{shape}": t["device_ms"],
+                        f"plain_ms_depth_{shape}": t["plain_device_ms"],
+                        f"bound_ms_depth_{shape}": t["bound_ms"],
+                        f"library_ms_depth_{shape}": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

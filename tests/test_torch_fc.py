@@ -14,6 +14,8 @@ conditioned (columns -I_ref and -1), so the tracked (a, b) is held to atol
 2e-3 gray levels and its LM iteration counts are not compared; without it
 they are equal.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -42,6 +44,10 @@ from uwslam_tpu_torch.interop import (  # noqa: E402
 from uwslam_tpu_torch.lie import se3  # noqa: E402
 from uwslam_tpu_torch.tracking import photometric, sequence  # noqa: E402
 from uwslam_tpu_torch.tracking.robust import WeightKind  # noqa: E402
+
+# The tests run on the CPU, where the wrappers take their plain versions.
+points_from_numpy = functools.partial(points_from_numpy, device="cpu")
+pyramid_from_numpy = functools.partial(pyramid_from_numpy, device="cpu")
 
 JCAM = JaxCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
 CAM = camera_from_jax(JCAM)

@@ -9,6 +9,8 @@ indices computed here and handed to the port). Eigen- and singular vectors
 are compared by sign-invariant quantities (LAPACK and torch may pick other
 signs).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -30,6 +32,9 @@ from uwslam_tpu.utils.synthetic import render_plane_view  # noqa: E402
 from uwslam_tpu_torch.features import descriptors, detect, match, pnp  # noqa: E402
 from uwslam_tpu_torch.interop import camera_from_jax, descriptor_projection_from_numpy  # noqa: E402
 from uwslam_tpu_torch.utils import linalg  # noqa: E402
+
+# The tests run on the CPU, where the wrappers take their plain versions.
+descriptor_projection_from_numpy = functools.partial(descriptor_projection_from_numpy, device="cpu")
 
 JCAM = JaxCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
 CAM = camera_from_jax(JCAM)

@@ -45,11 +45,11 @@ CALIBRATIONS = {
 }
 
 
-def _fields(cal, port: bool):
+def _fields(cal):
     raw = cal.raw
     intr = (raw.fx, raw.fy, raw.cx, raw.cy, raw.width, raw.height)
-    dist = cal.distortion if port else (raw.k1, raw.k2, raw.p1, raw.p2)
-    return intr, tuple(dist), (cal.out_width, cal.out_height), cal.needs_rectification
+    dist = (raw.k1, raw.k2, raw.p1, raw.p2)
+    return intr, dist, (cal.out_width, cal.out_height), cal.needs_rectification
 
 
 @pytest.mark.parametrize("name", sorted(CALIBRATIONS))
@@ -57,7 +57,7 @@ def test_calibration_xml_matches_jax(tmp_path, name):
     path = tmp_path / f"{name}.xml"
     path.write_text(XML.format(**CALIBRATIONS[name]))
     got, want = camera.load(str(path)), jcamera.load(str(path))
-    assert _fields(got, True) == _fields(want, False)
+    assert _fields(got) == _fields(want)
     assert got.needs_rectification == (name == "euroc")
 
 
@@ -68,7 +68,7 @@ def test_calibration_json_matches_jax(tmp_path):
                "height": 480, "k1": -0.1, "out_width": 600, "out_height": 400}):
         path = tmp_path / "calib.json"
         path.write_text(json.dumps(d))
-        assert _fields(camera.load(str(path)), True) == _fields(jcamera.load(str(path)), False)
+        assert _fields(camera.load(str(path))) == _fields(jcamera.load(str(path)))
     with pytest.raises(ValueError):
         camera.load(str(tmp_path / "calib.yaml"))
     bad = tmp_path / "bad.xml"

@@ -10,6 +10,9 @@ the same order without FMA contraction, so the card's comparison is exact
 (atol 0), planar and texels alike. `lm_evaluate` sums in another order than
 its plain version: valid counts equal, sums within 2e-5 of the pair's
 largest |H| entry (b: of sqrt(2 max|H| cost)), two launches bit-equal.
+The pipelined loop's CUDA graph replays the same launches on the same
+inputs, so it equals the eager megastep bit for bit; the card's pipelined
+run is held to the CPU's at 1e-3 (other sums inside `lm_evaluate`).
 """
 import pytest
 
@@ -235,3 +238,73 @@ def test_build_targets_sm90a_from_the_package_sources():
     assert path.parent == _lib.BUILD_DIR and path.suffix == ".so"
     assert all((_lib.CSRC / s).is_file() for s in _lib.SOURCES + _lib.HEADERS)
     assert "arch=compute_90a,code=sm_90a" in _lib.NVCC_FLAGS
+
+
+# ---- the pipelined live loop's CUDA graph (160 x 120, 512 points, 4 levels)
+
+LIVE_CAM = PinholeCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
+LIVE_TRACKER = dict(pyramid_levels=4, track_levels=(2, 1, 0), num_points=512, point_block=4,
+                    mono_depth=2.0)
+
+
+def _live_frames(n):
+    """Views of the textured plane along a sinusoidal motion with reversals."""
+    from uwslam_tpu_torch.utils.synthetic import render_plane_view
+
+    i = torch.arange(n, dtype=torch.float32)
+    s, c = torch.sin(0.35 * i), torch.cos(0.22 * i)
+    xi = torch.stack([0.28 * s, 0.10 * c, 0.05 * s, 0.010 * c, -0.012 * s, 0.015 * c], -1)
+    return render_plane_view(LIVE_CAM, se3.exp(xi), 2.0)
+
+
+def _live_system(device):
+    from uwslam_tpu_torch.camera import Calibration
+    from uwslam_tpu_torch.config import SlamConfig, TrackerConfig
+    from uwslam_tpu_torch.system import SlamSystem
+
+    return SlamSystem(Calibration(raw=LIVE_CAM, out_width=160, out_height=120),
+                      SlamConfig(tracker=TrackerConfig(**LIVE_TRACKER)), device=device)
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_the_eager_megastep_on_card(cuda_device):
+    from uwslam_tpu_torch.ops.graph import WARMUP_CALLS, tree_leaves
+
+    frames = _live_frames(4).to(cuda_device)
+    system = _live_system(cuda_device)
+    system.process_frame(frames[0])
+    eager = system._build_step_plain()
+    for i, f in enumerate(frames[1:]):
+        prev_pyr, prev_pts, _ = system._prev
+        want = eager(f, prev_pyr, prev_pts, system._velocity, system._T_wc,
+                     system.keyframes.latest.T_wc, system._eye)
+        before = ops.scharr_gradients_batched.launches
+        system.process_frame_async(f)
+        # A replay runs the captured launches (4 pyramid levels) and counts
+        # them; the first frame also ran the eager warm-up calls, while the
+        # capture itself, which runs nothing, counts nothing.
+        calls = 1 + (WARMUP_CALLS if i == 0 else 0)
+        assert ops.scharr_gradients_batched.launches - before == 4 * calls
+        got = (*system._prev[:2], system._velocity, system._T_wc)
+        for a, b in zip(tree_leaves(got), tree_leaves(want[:4])):
+            assert torch.equal(a, b)
+    system.flush()
+    assert system.graph_replays == 3 and len(system.trajectory) == 4
+
+
+@pytest.mark.cuda
+def test_pipelined_loop_on_card_matches_cpu(cuda_device):
+    frames = _live_frames(24)
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        system = _live_system(device)
+        for i, f in enumerate(frames.to(device)):
+            system.process_frame_async(f, timestamp=float(i))
+        system.flush()
+        runs.append(system)
+    card, cpu = runs
+    assert card.graph_replays == 23 and cpu.graph_replays == 0
+    assert sum(s.is_keyframe for s in card.trajectory) >= 2
+    for a, b in zip(card.trajectory, cpu.trajectory):
+        assert (a.status, a.is_keyframe, a.ref_kf_id) == (b.status, b.is_keyframe, b.ref_kf_id)
+        assert torch.allclose(torch.from_numpy(a.T_wc), torch.from_numpy(b.T_wc), atol=1e-3)

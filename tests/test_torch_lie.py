@@ -140,7 +140,10 @@ def test_camera_matches_jax(cam_kw, level):
         np.asarray(jcam.unproject(uv, z)), rtol=1e-6)
 
 
-def test_camera_refuses_distortion():
-    with pytest.raises(ValueError):
-        camera_from_jax(JaxCamera(100.0, 100.0, 50.0, 50.0, 100, 100, k1=0.1))
+def test_camera_carries_distortion():
+    jcam = JaxCamera(100.0, 100.0, 50.0, 50.0, 100, 100, k1=0.1, p2=-0.01)
+    cam = camera_from_jax(jcam)
+    assert (cam.k1, cam.k2, cam.p1, cam.p2) == (0.1, 0.0, 0.0, -0.01)
+    assert cam.has_distortion and cam.scaled(2).k1 == 0.1
+    assert not camera_from_jax(JaxCamera(100.0, 100.0, 50.0, 50.0, 100, 100)).has_distortion
     assert PinholeCamera(1.0, 1.0, 0.0, 0.0, 8, 8).scaled(1).width == 4

@@ -8,6 +8,8 @@ jax.random draws, bit for bit; rendered frames agree to a few ulps of
 [0, 255] (1e-3 absolute), since sin and the ray dot products round
 differently.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -31,6 +33,10 @@ from uwslam_tpu_torch.interop import (  # noqa: E402
 )
 from uwslam_tpu_torch.tracking import points, robust  # noqa: E402
 from uwslam_tpu_torch.utils import synthetic  # noqa: E402
+
+# The tests run on the CPU, where the wrappers take their plain versions.
+points_from_numpy = functools.partial(points_from_numpy, device="cpu")
+pyramid_from_numpy = functools.partial(pyramid_from_numpy, device="cpu")
 
 JCAM = JaxCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
 CAM = camera_from_jax(JCAM)

@@ -31,6 +31,9 @@ from uwslam_tpu_torch import ops  # noqa: E402
 from uwslam_tpu_torch.image import pyramid  # noqa: E402
 from uwslam_tpu_torch.interop import camera_from_jax, pyramid_from_numpy  # noqa: E402
 
+# The tests run on the CPU, where the wrappers take their plain versions.
+pyramid_from_numpy = functools.partial(pyramid_from_numpy, device="cpu")
+
 # Power-of-two focal lengths: a point at depth 1 projects exactly onto the
 # last column/row, so the edge cases below are exact in both packages.
 JCAM = JaxCamera(fx=64.0, fy=64.0, cx=31.5, cy=23.5, width=64, height=48)

@@ -79,7 +79,7 @@ def test_slice_trajectory_and_ate_match_jax(slice_runs):
 
 def test_functional_and_module_entry_points_agree(slice_runs):
     (T, _, _), _, _ = slice_runs
-    frames = bench.bench_frames(bench.bench_poses(8), CAM)
+    frames = bench.bench_frames(bench.bench_poses(8, device="cpu"), CAM)
     T2, _, _ = sequence.track_sequence_batched(frames, CAM, mono_z=2.0, **CONFIG)
     assert float((se3.log(T2) - se3.log(T)).abs().max()) < 1e-4
     with pytest.raises(ValueError):
@@ -87,7 +87,7 @@ def test_functional_and_module_entry_points_agree(slice_runs):
 
 
 def test_bench_poses_match_jax():
-    got = bench.bench_poses(30).numpy()
+    got = bench.bench_poses(30, device="cpu").numpy()
     want = np.stack([np.asarray(T) for T in _jax_poses(30)])
     np.testing.assert_allclose(got, want, atol=1e-6)
 

@@ -1,8 +1,8 @@
 """The port's live path (`SlamSystem.process_frame`, configuration 1: FC
 tracking, keyframes, relocalization) against the JAX package's on the
 sequences of tests/test_system.py and tests/test_reloc.py, and the
-package's boundaries: unported switches refuse loudly, and no module
-needs JAX.
+package's boundaries: unported switches refuse loudly, the default device
+is the card, and no module needs JAX.
 
 Tolerances: per-frame T_wc atol 1e-4 (f32 sums in another order), statuses,
 keyframe flags and the exported trajectory's timestamps equal. A
@@ -49,7 +49,7 @@ def _systems(**tracker):
     cfg = dict(TRACKER, **tracker)
     return (
         SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120),
-                   SlamConfig(tracker=TrackerConfig(**cfg))),
+                   SlamConfig(tracker=TrackerConfig(**cfg)), device="cpu"),
         JaxSystem(JaxCalibration(raw=JCAM, out_width=160, out_height=120),
                   JaxConfig(tracker=JaxTrackerConfig(**cfg))),
     )
@@ -166,29 +166,25 @@ def test_clean_sequence_never_lost():
 @pytest.mark.parametrize("change", [
     dict(use_features=True), dict(use_ba=True), dict(use_loop_closure=True),
     dict(global_ba=True), dict(tracker=TrackerConfig(depth_bootstrap=True)),
-    dict(tracker=TrackerConfig(point_mode="dense")),
 ])
 def test_unported_switches_raise_naming_the_roadmap(change):
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120), SlamConfig(**change))
+        SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120), SlamConfig(**change),
+                   device="cpu")
 
 
-def test_depth_images_and_distortion_raise_naming_the_roadmap():
-    port, _ = _systems()
-    frame = _view([0.0] * 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 1"):
-        port.process_frame(frame, depth=np.ones_like(frame))
-    distorted = Calibration(raw=CAM, out_width=160, out_height=120,
-                            distortion=(-0.28, 0.07, 0.0, 0.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
-        SlamSystem(distorted, SlamConfig())
+def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120), SlamConfig())
 
 
 def test_crop_and_profile_timers():
     calib = Calibration(raw=PinholeCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5,
                                           width=165, height=123),
                         out_width=165, out_height=123)
-    port = SlamSystem(calib, SlamConfig(tracker=TrackerConfig(**TRACKER), profile=True))
+    port = SlamSystem(calib, SlamConfig(tracker=TrackerConfig(**TRACKER), profile=True),
+                      device="cpu")
     assert (port.cam.width, port.cam.height) == (160, 120)
     big = np.zeros((123, 165), np.float32)
     big[:120, :160] = _view([0.0] * 6)

@@ -33,6 +33,10 @@ from uwslam_tpu_torch.interop import (  # noqa: E402
 from uwslam_tpu_torch.lie import se3  # noqa: E402
 from uwslam_tpu_torch.tracking import photometric  # noqa: E402
 
+# The tests run on the CPU, where the wrappers take their plain versions.
+points_from_numpy = partial(points_from_numpy, device="cpu")
+pyramid_from_numpy = partial(pyramid_from_numpy, device="cpu")
+
 JCAM = JaxCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
 CAM = camera_from_jax(JCAM)
 NUM_POINTS = 384

@@ -42,7 +42,7 @@ MONO_Z = 2.0
 RUNS = 10   # timed chunks
 
 
-def bench_poses(num_frames: int = NUM_FRAMES, device="cpu") -> torch.Tensor:
+def bench_poses(num_frames: int = NUM_FRAMES, device="cuda") -> torch.Tensor:
     """Camera-from-world poses (num_frames, 4, 4): twist amp * sin(2 pi i / 24)."""
     amp = torch.tensor(TWIST_AMP, dtype=torch.float32, device=device)
     twists = torch.stack([

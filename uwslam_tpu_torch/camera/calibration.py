@@ -8,10 +8,6 @@ cv::FileStorage at src/CameraModel.cpp:36-58):
   rectification      = [k1 k2 p1 p2]   (k1 = k2 = 0 means no distortion)
 with the normalized-intrinsics rule (cx < 1 and cy < 1: values are
 fractions of the image size, src/CameraModel.cpp:61-68).
-
-The port's camera has no distortion model, so the coefficients are kept
-beside it in `Calibration.distortion`; a calibration that needs
-rectification loads, and `SlamSystem` refuses it (ROADMAP slice 5).
 """
 from __future__ import annotations
 
@@ -25,14 +21,13 @@ from .model import PinholeCamera
 
 @dataclass(frozen=True)
 class Calibration:
-    raw: PinholeCamera                        # intrinsics of the input image
+    raw: PinholeCamera          # intrinsics of the raw (distorted) input image
     out_width: int
     out_height: int
-    distortion: tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)  # k1 k2 p1 p2
 
     @property
     def needs_rectification(self) -> bool:
-        return any(abs(d) > 1e-12 for d in self.distortion)
+        return self.raw.has_distortion
 
 
 def _parse_matrix_data(elem: ET.Element) -> list[float]:
@@ -64,11 +59,9 @@ def load_opencv_xml(path: str) -> Calibration:
     k1, k2, p1, p2 = (rect + [0, 0, 0, 0])[:4]
     if k1 == 0.0 and k2 == 0.0:     # [0 0 0 1] or all zeros: no distortion
         k1 = k2 = p1 = p2 = 0.0
-    return Calibration(
-        raw=PinholeCamera(fx=fx, fy=fy, cx=cx, cy=cy, width=in_w, height=in_h),
-        out_width=out_w, out_height=out_h,
-        distortion=(float(k1), float(k2), float(p1), float(p2)),
-    )
+    raw = PinholeCamera(fx=fx, fy=fy, cx=cx, cy=cy, width=in_w, height=in_h,
+                        k1=k1, k2=k2, p1=p1, p2=p2)
+    return Calibration(raw=raw, out_width=out_w, out_height=out_h)
 
 
 def load_json(path: str) -> Calibration:
@@ -79,12 +72,13 @@ def load_json(path: str) -> Calibration:
     raw = PinholeCamera(
         fx=d["fx"], fy=d["fy"], cx=d["cx"], cy=d["cy"],
         width=d["width"], height=d["height"],
+        k1=d.get("k1", 0.0), k2=d.get("k2", 0.0),
+        p1=d.get("p1", 0.0), p2=d.get("p2", 0.0),
     )
     return Calibration(
         raw=raw,
         out_width=d.get("out_width", d["width"]),
         out_height=d.get("out_height", d["height"]),
-        distortion=tuple(float(d.get(k, 0.0)) for k in ("k1", "k2", "p1", "p2")),
     )
 
 

@@ -5,11 +5,14 @@ JAX package's own), on one torch device: `--platform cuda` (the default)
 or `cpu`. Without a card the default exits non-zero; it never continues on
 the CPU.
 
-The live loop is the synchronous `SlamSystem.process_frame`; the JAX
-package's pipelined loop (`process_frame_async`) is not ported yet, and the
-JAX package's tests pin both loops to the same trajectory. `--offline`
-tracks the dataset in chunks with the batched tracker (`track_sequence_batched`,
-FC or IC). Flags of later slices exit non-zero naming the ROADMAP item.
+The live loop is pipelined by default (`SlamSystem.process_frame_async`:
+one CUDA graph replay per frame, frames uploaded one ahead by
+`DeviceFramePrefetcher`, diagnostics read back in batches a few frames
+late); `--no-pipeline` or `--profile` gives the synchronous
+`process_frame`, and frames with a depth image (`-p`) always take it.
+`--offline` tracks the dataset in chunks with the batched tracker
+(`track_sequence_batched`, FC or IC, with depth frames under `-p`). Flags of
+later slices exit non-zero naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,7 +22,6 @@ import time
 
 # Flags whose slice is not ported: flag -> (what, ROADMAP slice and item).
 UNPORTED_FLAGS = {
-    "depth": ("-p/--depth (depth images)", "slice 1, item 3"),
     "features": ("--features (the feature front-end)", "slice 4, item 14"),
     "ba": ("--ba (window BA)", "slice 6, item 16"),
     "photo_ba": ("--photo-ba (photometric window BA)", "slice 6, item 16"),
@@ -105,8 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--affine", action="store_true",
                    help="jointly estimate affine brightness (a, b) per frame pair")
     p.add_argument("--no-pipeline", action="store_true",
-                   help="process every frame synchronously (the port's live "
-                        "loop always does)")
+                   help="process every frame synchronously (the live loop is "
+                        "pipelined by default)")
     p.add_argument("--offline", action="store_true",
                    help="batch the dataset through the pair-parallel tracker "
                         "(odometry only: no keyframes or relocalization)")
@@ -162,34 +164,43 @@ def run_offline(args, system, config, seq) -> int:
         print("offline mode needs >= 2 frames", file=sys.stderr)
         return 1
     chunk = max(2, args.chunk)
-    x0, y0, w, h = system._roi
 
-    def track_chunk(imgs):
-        frames = torch.stack(imgs)
+    def track_chunk(imgs, depths):
+        # Depth is used only where every frame of the chunk has it.
+        use_depth = all(d is not None for d in depths)
         T_rel, _, _ = track_sequence_batched(
-            frames, system.cam, mono_z=tcfg.mono_depth, levels=tcfg.pyramid_levels,
+            torch.stack(imgs), system.cam,
+            depth_frames=torch.stack(depths) if use_depth else None,
+            mono_z=tcfg.mono_depth, levels=tcfg.pyramid_levels,
             track_levels=tcfg.track_levels, num_points=tcfg.num_points,
             max_iters=tcfg.max_iterations, mode=tcfg.track_mode,
             affine=tcfg.affine_brightness,
         )
         return T_rel
 
-    T_rel_all, imgs = [], []
+    T_rel_all, imgs, depths = [], [], []
+    missing_depth = 0
     t0 = time.perf_counter()
     prefetcher = FramePrefetcher(seq)
     try:
-        for i, (img, _) in prefetcher:
+        for i, (img, depth) in prefetcher:
             if i >= n:
                 break
-            dev = torch.from_numpy(img).to(system.device, torch.float32)
-            imgs.append(dev[y0:y0 + h, x0:x0 + w].contiguous())
+            if args.depth and depth is None:
+                missing_depth += 1
+            imgs.append(system._ingest(img))
+            depths.append(None if depth is None else system._ingest_depth(depth))
             if len(imgs) == chunk:
-                T_rel_all.append(track_chunk(imgs))
-                imgs = imgs[-1:]     # one-frame overlap chains the chunks
+                T_rel_all.append(track_chunk(imgs, depths))
+                # one-frame overlap chains the chunks
+                imgs, depths = imgs[-1:], depths[-1:]
     finally:
         prefetcher.close()
     if len(imgs) >= 2:
-        T_rel_all.append(track_chunk(imgs))
+        T_rel_all.append(track_chunk(imgs, depths))
+    if missing_depth:
+        print(f"WARNING: {missing_depth} frames lack depth; chunks containing "
+              f"them fall back to mono_z={tcfg.mono_depth}", file=sys.stderr)
     poses = compose_trajectory(torch.cat(T_rel_all).cpu()).numpy()
     n = len(poses)
     dt = time.perf_counter() - t0
@@ -221,7 +232,13 @@ def main(argv=None) -> int:
 
     from .. import camera
     from ..config import FeatureConfig, KeyframeConfig, SlamConfig, TrackerConfig
-    from ..io import FramePrefetcher, open_directory, open_euroc
+    from ..io import (
+        DeviceFramePrefetcher,
+        FramePrefetcher,
+        open_directory,
+        open_euroc,
+        open_tum,
+    )
     from ..system import SlamSystem
     from ..tracking.robust import WeightKind
 
@@ -247,33 +264,46 @@ def main(argv=None) -> int:
     except NotImplementedError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    seq = (open_euroc(args.directory, start=args.start) if args.euroc
-           else open_directory(args.directory, start=args.start))
+    if args.euroc:
+        seq = open_euroc(args.directory, start=args.start)
+    elif args.depth:
+        seq = open_tum(args.directory, args.depth, start=args.start)
+    else:
+        seq = open_directory(args.directory, start=args.start)
 
     if args.offline:
         return run_offline(args, system, config, seq)
 
-    print("live loop: synchronous process_frame (the pipelined loop is not "
-          "ported yet, ROADMAP slice 3, item 12)", file=sys.stderr)
+    # Pipelined by default; --no-pipeline and --profile (stage timers need
+    # fenced stages) take the synchronous loop.
+    pipelined = not (args.no_pipeline or args.profile)
+    print("live loop: " + ("pipelined process_frame_async" if pipelined
+                           else "synchronous process_frame"), file=sys.stderr)
+    step = system.process_frame_async if pipelined else system.process_frame
     n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
-    # Steady state excludes the first frames (kernel build, allocator warm-up).
+    # Steady state excludes the first frames (kernel build, graph capture,
+    # allocator warm-up).
     warmup = min(15, max(0, n - 10))
     t0 = time.perf_counter()
     t_warm = None
-    prefetcher = FramePrefetcher(seq)
+    prefetcher = (DeviceFramePrefetcher(seq, system.device) if pipelined
+                  else FramePrefetcher(seq))
     try:
-        for i, (img, _) in prefetcher:
+        for i, (img, depth) in prefetcher:
             if i >= n:
                 break
             if i == warmup:
                 t_warm = time.perf_counter()
-            state = system.process_frame(
-                img, timestamp=seq.timestamps[i] if seq.timestamps is not None else None,
+            state = step(
+                img, depth,
+                timestamp=seq.timestamps[i] if seq.timestamps is not None else None,
             )
-            if i % 50 == 0:
+            if i % 50 == 0 and state is not None:
                 print(f"frame {i}: inliers={state.tracked_inliers} "
                       f"err={state.track_error:.3f} kf={state.is_keyframe}",
                       file=sys.stderr)
+        if pipelined:
+            system.flush()   # retire the frames still in flight
     finally:
         prefetcher.close()
     dt = time.perf_counter() - t0

@@ -11,8 +11,8 @@ depth factor 0.0002 (src/Tracker.cpp:1223); <= 200 keypoints per frame
 (src/Tracker.cpp:1190).
 
 Switches whose slice is not ported yet (`use_features`, `use_ba`,
-`use_loop_closure`, `global_ba`, `depth_bootstrap`, `point_mode="dense"`)
-are accepted here and refused by `SlamSystem`, which names the ROADMAP item.
+`use_loop_closure`, `global_ba`, `depth_bootstrap`) are accepted here and
+refused by `SlamSystem`, which names the ROADMAP item.
 """
 from __future__ import annotations
 

@@ -22,21 +22,22 @@ def _tensor(x, device, dtype=np.float32) -> torch.Tensor:
 
 
 def camera_from_jax(cam) -> PinholeCamera:
-    """From an object with the fields of `uwslam_tpu.camera.PinholeCamera`.
-    The port's camera has no distortion; a distorted camera is refused."""
-    for name in ("k1", "k2", "p1", "p2"):
-        if abs(float(getattr(cam, name, 0.0))) > 1e-12:
-            raise ValueError(
-                f"camera has distortion ({name}); lens distortion is not ported "
-                "(ROADMAP slice 5, item 15)"
-            )
+    """From an object with the fields of `uwslam_tpu.camera.PinholeCamera`,
+    the radtan coefficients included."""
     return PinholeCamera(
         fx=float(cam.fx), fy=float(cam.fy), cx=float(cam.cx), cy=float(cam.cy),
         width=int(cam.width), height=int(cam.height),
+        **{k: float(getattr(cam, k, 0.0)) for k in ("k1", "k2", "p1", "p2")},
     )
 
 
-def pyramid_from_numpy(pyr, device="cpu") -> FramePyramid:
+def depth_from_numpy(depth, device) -> torch.Tensor:
+    """A depth image (H, W), or a stack of them, in raw sensor units (TUM:
+    16-bit, 5000 per metre) as f32 on `device`; 16-bit values are exact."""
+    return _tensor(depth, device)
+
+
+def pyramid_from_numpy(pyr, device) -> FramePyramid:
     """From an object with the fields of `uwslam_tpu.image.FramePyramid`
     (images, grad_x, grad_y, grad_mag: one (B, H_l, W_l) array per level)."""
     return FramePyramid(
@@ -45,7 +46,7 @@ def pyramid_from_numpy(pyr, device="cpu") -> FramePyramid:
     )
 
 
-def points_from_numpy(pts, device="cpu") -> TrackPoints:
+def points_from_numpy(pts, device) -> TrackPoints:
     """From an object with the fields of `uwslam_tpu.tracking.TrackPoints`
     ((B, N, ...) arrays; gx0/gy0 may be None)."""
     def opt(x):
@@ -61,7 +62,7 @@ def points_from_numpy(pts, device="cpu") -> TrackPoints:
     )
 
 
-def descriptor_projection_from_numpy(m, device="cpu") -> torch.Tensor:
+def descriptor_projection_from_numpy(m, device) -> torch.Tensor:
     """The (64, 64) descriptor projection as the port's `describe` takes it
     (`proj=`), from the JAX package's `_projection_matrix(64, 64)`."""
     t = _tensor(m, device)

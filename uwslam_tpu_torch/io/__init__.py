@@ -1,5 +1,6 @@
 """Dataset readers, trajectory I/O and evaluation."""
 from .dataset import (
+    DeviceFramePrefetcher,
     FramePrefetcher,
     Sequence,
     list_images,
@@ -20,6 +21,7 @@ from .trajectory import (
 )
 
 __all__ = [
+    "DeviceFramePrefetcher",
     "FramePrefetcher",
     "Sequence",
     "associate",

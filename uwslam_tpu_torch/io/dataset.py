@@ -1,7 +1,8 @@
 """Dataset readers: directories of images, TUM and EUROC layouts.
 
 Counterpart of `uwslam_tpu.io.dataset` (`list_images`, `Sequence`,
-`open_directory`, `open_tum`, `open_euroc`, `FramePrefetcher`), after
+`open_directory`, `open_tum`, `open_euroc`, `FramePrefetcher`,
+`DeviceFramePrefetcher`), after
 uw-slam's dataset plumbing: directory scan, sort and the >= 15 image check
 (src/System.cpp:290-350), TUM's timestamped names, EUROC's
 mav0/cam0/data/<ns>.png.
@@ -200,3 +201,75 @@ class FramePrefetcher:
     def close(self):
         self._stop.set()
         self._thread.join(timeout=10)
+
+
+def as_uint8_if_exact(img: np.ndarray) -> np.ndarray:
+    """An 8-bit frame decoded to f32 goes back to uint8 (a quarter of the
+    bytes to upload) when that loses nothing: every value integral and in
+    [0, 255]. Anything else (16-bit frames, negative or fractional values)
+    is returned as it is."""
+    if img.dtype == np.uint8:
+        return img
+    if img.size and img.min() >= 0.0 and img.max() <= 255.0 and (img == np.rint(img)).all():
+        return img.astype(np.uint8)
+    return img
+
+
+class DeviceFramePrefetcher:
+    """Wraps `FramePrefetcher` and uploads each frame to `device` one frame
+    ahead of the consumer, so the host-to-device copy of frame i+1 overlaps
+    the device work of frame i. On a CUDA device the frame goes through
+    pinned host memory on a side stream, with an event that the consumer's
+    current stream waits on before the frame is handed over. 8-bit frames
+    travel as uint8 (`as_uint8_if_exact`); the consumer converts on the
+    device. Yields (index, (frame tensor on the device, None)); a frame
+    with a depth image passes through un-uploaded as (index, (image,
+    depth)): the RGB-D path is not pipelined."""
+
+    def __init__(self, seq: Sequence, device, lookahead: int = 4):
+        import torch
+
+        self._inner = FramePrefetcher(seq, lookahead=lookahead)
+        self._device = torch.device(device)
+        self._stream = torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
+
+    def _upload(self, img: np.ndarray):
+        """-> (tensor on the device, event or None)."""
+        import torch
+
+        host = torch.from_numpy(np.ascontiguousarray(as_uint8_if_exact(img)))
+        if self._stream is None:
+            return host.to(self._device), None
+        with torch.cuda.stream(self._stream):
+            dev = host.pin_memory().to(self._device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return dev, event
+
+    def _hand_over(self, held):
+        import torch
+
+        i, dev, event = held
+        if event is not None:
+            torch.cuda.current_stream(self._device).wait_event(event)
+            dev.record_stream(torch.cuda.current_stream(self._device))
+        return i, (dev, None)
+
+    def __iter__(self):
+        held = None  # (index, device tensor, event)
+        for i, (img, depth) in self._inner:
+            if depth is not None:
+                if held is not None:
+                    yield self._hand_over(held)
+                    held = None
+                yield i, (img, depth)
+                continue
+            upload = self._upload(img)
+            if held is not None:
+                yield self._hand_over(held)
+            held = (i, *upload)
+        if held is not None:
+            yield self._hand_over(held)
+
+    def close(self):
+        self._inner.close()

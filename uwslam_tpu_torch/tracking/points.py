@@ -1,9 +1,13 @@
 """Candidate-point selection for direct tracking, batched over frames.
 
 Counterpart of `uwslam_tpu.tracking.points` (`TrackPoints`,
-`topk_gradient_points`, and the monocular branch of `_depth_at`). Every
-field of `TrackPoints` has a leading frame (or pair) dimension B and a fixed
-point capacity N; `valid` masks the real entries.
+`topk_gradient_points`, `dense_points` and `_depth_at`). Every field of
+`TrackPoints` has a leading frame (or pair) dimension B and a fixed point
+capacity N; `valid` masks the real entries.
+
+Depth images are in the sensor's raw units, TUM's 16-bit PNG values at 5000
+per metre (`TUM_DEPTH_FACTOR`, uw-slam src/Tracker.cpp:1223); points without
+a depth image sit at the constant monocular depth `mono_z`.
 """
 from __future__ import annotations
 
@@ -12,6 +16,9 @@ from typing import NamedTuple
 import torch
 
 from ..camera.model import PinholeCamera
+from ..ops.cuda_sample import cuda_bilinear_sample
+
+TUM_DEPTH_FACTOR = 0.0002
 
 
 class TrackPoints(NamedTuple):
@@ -29,16 +36,55 @@ class TrackPoints(NamedTuple):
         return TrackPoints(*(None if f is None else f[index] for f in self))
 
 
-def _depth_at(uv: torch.Tensor, mono_z: float):
-    """Monocular depth: mono_z at every point, all valid."""
-    d = torch.full(uv.shape[:-1], mono_z, dtype=torch.float32, device=uv.device)
-    return d, torch.ones(uv.shape[:-1], dtype=torch.bool, device=uv.device)
+def _depth_at(depth_image, uv: torch.Tensor, mono_z: float,
+              max_edge_ratio: float = 1.15):
+    """Depth (metres) and its validity at uv (..., N, 2); `mono_z` where
+    there is no depth. depth_image is None (monocular: all valid), (H, W)
+    with uv (N, 2), or (B, H, W) with uv (B, N, 2).
+
+    A bilinear read that straddles a depth discontinuity interpolates
+    between two surfaces, and high-gradient points sit on exactly those
+    edges. So the four corner texels are read on their own (ONE kernel K3
+    launch with C = 1 over the 4 N corner coordinates), blended, and the
+    point is dropped where a corner is a hole (0) or the corners differ by
+    more than `max_edge_ratio`."""
+    if depth_image is None:
+        d = torch.full(uv.shape[:-1], mono_z, dtype=torch.float32, device=uv.device)
+        return d, torch.ones(uv.shape[:-1], dtype=torch.bool, device=uv.device)
+    if depth_image.dim() == 2:
+        d, ok = _depth_at(depth_image[None], uv[None], mono_z, max_edge_ratio)
+        return d[0], ok[0]
+    B, H, W = depth_image.shape
+    N = uv.shape[1]
+    u, v = uv[..., 0], uv[..., 1]
+    u0 = torch.clamp(torch.floor(u), 0, W - 2)
+    v0 = torch.clamp(torch.floor(v), 0, H - 2)
+    fu = torch.clamp(u - u0, 0.0, 1.0)
+    fv = torch.clamp(v - v0, 0.0, 1.0)
+    corner_uv = torch.stack(
+        [torch.stack([u0 + du, v0 + dv], dim=-1)
+         for du, dv in ((0, 0), (1, 0), (0, 1), (1, 1))], dim=1,
+    )                                                        # (B, 4, N, 2)
+    vals, _ = cuda_bilinear_sample(depth_image[:, None], corner_uv.reshape(B, 4 * N, 2))
+    corners = vals[:, 0].reshape(B, 4, N) * TUM_DEPTH_FACTOR
+    c00, c10, c01, c11 = corners.unbind(1)
+    d = (
+        c00 * (1 - fu) * (1 - fv)
+        + c10 * fu * (1 - fv)
+        + c01 * (1 - fu) * fv
+        + c11 * fu * fv
+    )
+    dmin, dmax = corners.amin(1), corners.amax(1)
+    inb = (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
+    ok = inb & (dmin > 1e-6) & (dmax <= dmin * max_edge_ratio)
+    return torch.where(ok, d, mono_z), ok
 
 
 def topk_gradient_points(
     image: torch.Tensor,
     grad_mag: torch.Tensor,
     cam: PinholeCamera,
+    depth_image: torch.Tensor | None = None,
     num_points: int = 2048,
     mono_z: float = 1.0,
     border: int = 4,
@@ -47,7 +93,8 @@ def topk_gradient_points(
     grad_y: torch.Tensor | None = None,
 ) -> TrackPoints:
     """Per frame of (B, H, W): the `num_points` strongest `block` x `block`
-    block maxima of the gradient magnitude, border suppressed.
+    block maxima of the gradient magnitude, border suppressed; their depth
+    from `depth_image` (B, H, W) where given (`_depth_at`), else `mono_z`.
 
     The block argmax is the JAX package's packed-int form: magnitudes are
     bitcast to int32 (monotone for non-negative floats), the low 6 bits
@@ -105,7 +152,7 @@ def topk_gradient_points(
         if gx0 is not None:
             gx0, gy0 = padded(gx0, 0.0), padded(gy0, 0.0)
 
-    depth, dok = _depth_at(uv, mono_z)
+    depth, dok = _depth_at(depth_image, uv, mono_z)
     return TrackPoints(
         uv=uv,
         p3d=cam.unproject(uv, depth),
@@ -113,4 +160,43 @@ def topk_gradient_points(
         valid=(top_val > 0) & dok,
         gx0=gx0,
         gy0=gy0,
+    )
+
+
+def dense_points(
+    image: torch.Tensor,
+    cam: PinholeCamera,
+    depth_image: torch.Tensor | None = None,
+    mono_z: float = 1.0,
+    stride: int = 1,
+    border: int = 4,
+) -> TrackPoints:
+    """Every `stride`-th pixel of (B, H, W) as a track point (uw-slam's
+    ObtainAllPoints, src/Tracker.cpp:1259-1310): a fixed (H // stride) *
+    (W // stride) points per frame, the border band masked rather than
+    dropped. Values are read by strided slicing (the grid is the integer
+    pixels themselves), depth holes fall back to `mono_z` and are invalid."""
+    B, H, W = image.shape
+    dev = image.device
+    Hs, Ws = H - (H % stride), W - (W % stride)
+    v, u = torch.meshgrid(
+        torch.arange(0, Hs, stride, dtype=torch.float32, device=dev),
+        torch.arange(0, Ws, stride, dtype=torch.float32, device=dev),
+        indexing="ij",
+    )
+    uv = torch.stack([u.reshape(-1), v.reshape(-1)], dim=-1)
+    interior = (
+        (uv[:, 0] >= border) & (uv[:, 0] < W - border)
+        & (uv[:, 1] >= border) & (uv[:, 1] < H - border)
+    )
+    uv = uv.expand(B, -1, 2).contiguous()
+    intensity = image[:, :Hs:stride, :Ws:stride].reshape(B, -1)
+    if depth_image is None:
+        depth, dok = _depth_at(None, uv, mono_z)
+    else:
+        d = depth_image[:, :Hs:stride, :Ws:stride].reshape(B, -1) * TUM_DEPTH_FACTOR
+        dok = d > 1e-6
+        depth = torch.where(dok, d, mono_z)
+    return TrackPoints(
+        uv=uv, p3d=cam.unproject(uv, depth), intensity=intensity, valid=interior & dok
     )

@@ -1,6 +1,7 @@
 """Synthetic textured-plane views with exact ground truth, in PyTorch.
 
-Counterpart of `smooth_texture`, `render_plane_view` and `plane_depth` in
+Counterpart of `smooth_texture`, `render_plane_view`,
+`render_plane_view_distorted` and `plane_depth` in
 `uwslam_tpu.utils.synthetic`. The JAX package draws the texture's
 sinusoid coefficients from `jax.random` with a seed; the port carries the
 seed-0 coefficients (the benchmark scene) as literals, so both packages
@@ -79,19 +80,22 @@ def smooth_texture(
     return (acc + hi) / (2.0 * hi) * 255.0
 
 
-def _plane_hit(cam: PinholeCamera, T_cam_world: torch.Tensor, plane_z: float):
+def _plane_hit(cam: PinholeCamera, T_cam_world: torch.Tensor, plane_z: float,
+               undistort: bool = False):
     """Ray parameter t and world (x, y) where each pixel's ray meets the
-    plane z = plane_z; T_cam_world (..., 4, 4) -> (..., H, W) each."""
+    plane z = plane_z; T_cam_world (..., 4, 4) -> (..., H, W) each. With
+    undistort=True a pixel's ray is its undistorted normalized coordinate
+    (the pixels are those of the raw, distorted image)."""
     dev, dt = T_cam_world.device, T_cam_world.dtype
     v, u = torch.meshgrid(
         torch.arange(cam.height, dtype=dt, device=dev),
         torch.arange(cam.width, dtype=dt, device=dev),
         indexing="ij",
     )
-    d = torch.stack(
-        [(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, torch.ones_like(u)],
-        dim=-1,
-    )                                                   # (H, W, 3)
+    xy = torch.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy], dim=-1)
+    if undistort:
+        xy = cam.undistort_normalized(xy)
+    d = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)   # (H, W, 3)
     T_world_cam = se3.inverse(T_cam_world)
     o_w = se3.translation(T_world_cam)[..., None, None, :]  # (..., 1, 1, 3)
     d_w = torch.einsum("...ij,hwj->...hwi", se3.rotation(T_world_cam), d)
@@ -110,6 +114,18 @@ def render_plane_view(
     T_cam_world (..., 4, 4) -> (..., H, W) f32 (world frame == the identity
     view's camera frame)."""
     t, px, py = _plane_hit(cam, T_cam_world, plane_z)
+    return torch.where(t <= 0, 0.0, smooth_texture(px, py, texture))
+
+
+def render_plane_view_distorted(
+    cam: PinholeCamera,
+    T_cam_world: torch.Tensor,
+    plane_z: float = 2.0,
+    texture: Texture = TEXTURE_SEED0,
+) -> torch.Tensor:
+    """`render_plane_view` as a distorted camera sees it (`cam` carries the
+    radtan coefficients): the input of the rectification path."""
+    t, px, py = _plane_hit(cam, T_cam_world, plane_z, undistort=True)
     return torch.where(t <= 0, 0.0, smooth_texture(px, py, texture))
 
 
