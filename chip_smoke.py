@@ -88,9 +88,46 @@ fails. Phases, one line each:
    in phase 3b; the frames through the pipelined loop (region of interest and camera equal to the CPU run's,
    ATE <= 2 cm, card vs CPU 1e-3) and, as 8-bit files in the EUROC layout,
    through the CLI with `--euroc`.
+13. Bundle adjustment at the bench's window shape (10 keyframes x 1024
+   landmarks x 10,240 observations, `max_iters=25`, problem from a numpy
+   seed): final cost below the initial one and within 1% of the port's CPU
+   run, refined poses card vs CPU within 1e-3 on se3.log, two card runs
+   bit-equal, pose error against the true poses smaller than at the start;
+   the solve as a captured graph (what the live loop dispatches) bit-equal
+   to the eager one; iterations, ms per solve and iterations/s of both, and
+   from the profiler the kernels and device time of one solve.
+14. K3 at the depth-refinement shape (C = 3 texels of one 480 x 640 frame,
+   2048 points, last-row and last-column points among them) against its
+   plain version, limit 0, timed beside its bound and `grid_sample`; and
+   `refine_inverse_depth` on the card against the CPU (5 launches).
+15. Config 2, synchronous: 48 frames of the multi-plane scene with
+   `use_features` and `depth_bootstrap`, and with the bootstrap off: every
+   frame ok, the prior installed within the first frames, bootstrap ATE
+   below the constant-depth ATE, two card runs bit-equal. Against the
+   port's CPU run, which takes the same forms of every operation: equal
+   statuses, both ATEs under the bar and close, poses within
+   CONFIG2_POSE_ATOL (this path amplifies last-bit differences, which a
+   third card run on the frames plus 1e-4 gray levels of noise measures:
+   the 1e-3 of the other paths does not hold here, see the constant).
+   Also uw-slam's active pipeline
+   (`--reference-mode`: patch points, level 0, identity weights) on 48 plane
+   frames under a bar from the JAX package's CPU run of the same frames.
+16. Config 2, pipelined: the bootstrap megastep's replay against its eager
+   call, bit for bit; the pipelined trajectory against the synchronous one
+   (PIPE_VS_SYNC_ATE); frames through the graph, launches per replay, ms per
+   frame, and device ms and kernels per frame from a profiled window.
+17. Config 4: the 96 plane frames with `use_features` and `use_ba`
+   (synchronous, the JAX package's rule for patch points): window solves
+   retired and applied, ATE within 10% of the run without BA, card vs CPU
+   1e-3; and the pipelined loop (`use_ba` alone: keyframes carry features
+   for relocalization) with BA on beside BA off: per-frame time, the host's
+   time in BA, ATE under the JAX package's own for that configuration.
+18. The CLI with `--features --depth-bootstrap` and with `--features --ba` on
+   the 8-bit dataset of phase 8: exit 0, ATE within CLI_ATE_MAX.
 
 Then a JSON line of per-kernel results (launches on the offline, the live,
-the depth, the pipelined and the rectified path; time, plain version's
+the depth, the pipelined, the rectified, the bootstrap and the BA path;
+time, plain version's
 time, the card's bound for the same bytes and operations, and a library
 call's time where one computes the same function), the card's name and
 power limit, and, last, `{"ok": true, "device": {...}}`.
@@ -165,6 +202,33 @@ KERNEL_SYMBOLS = {"scharr": "scharr_kernel", "warp_sample": "warp_sample_kernel"
 RECT_FRAMES = 32
 RECT_DISTORTION = dict(k1=-0.28, k2=0.07, p1=2e-4, p2=1.8e-5)   # EUROC-like
 RECT_ATE_MAX = 2e-2
+BA_COST_RTOL = 1e-2      # final cost, card vs CPU
+BA_POSE_ATOL = 1e-3      # se3.log of the refined poses, card vs CPU
+SCENE_FRAMES = 48
+SCENE_TWIST_AMP = (0.30, 0.10, 0.07, 0.02, 0.06, 0.03)   # x sin(2 pi i / 48)
+SCENE_MONO_DEPTH = 2.5
+PRIOR_INSTALLED_BY = 3   # frame by which the depth prior must exist
+CONFIG2_ATE_MAX = 3e-2   # m; the port's CPU run 0.0148 m, constant depth 0.0453 m
+# Config 2 fixes the monocular scale from its first pair (0.039 m apart, 1.4
+# to 5 m away), where the essential matrix is determined to about 1e-3 of
+# its norm, and feeds each frame's depth refinement and RANSAC winner back
+# into the next frame's tracking. Card and CPU run the same forms of every
+# operation and differ in the last bits alone; 1e-4 gray levels of image
+# noise (4e-7 of the range) move the card's poses by 0.0027 to 0.0115 and the
+# CPU's by 0.0117 to 0.0147 over the 48 frames, keyframes with them, and the
+# card is 0.0120 from the CPU (H100 80GB HBM3, 700 W, and its host). So the
+# bound is 2.5 times that gap, not the 1e-3 of the other paths; the ATEs must
+# agree to 15%, the statuses must be equal, and the keyframes are printed.
+# What holds the card's path to the bit is its own second run and phase 16.
+CONFIG2_POSE_ATOL = 3e-2
+CONFIG2_NOISE = 1e-4      # gray levels; the run that measures the amplification
+REFERENCE_ATE_MAX = 5e-3  # m; the JAX package's CPU run of these 48 frames: 0.001757 m
+BOOT_PROFILED_FRAMES = 4
+# m; the JAX package's CPU runs of the 96 frames: pipelined with `use_ba`
+# 0.002693 m (0.000853 m without: its window BA costs accuracy on this
+# fronto-parallel plane), `use_features` + `use_ba` 0.003712 m (0.003671 m).
+PIPE_BA_ATE_MAX = 3.2e-3
+FEATURES_BA_ATE_MAX = 5e-3
 
 
 def say(phase: str, msg: str) -> None:
@@ -1359,6 +1423,474 @@ def phase_rectification(poses, table):
             "graph_replays": system.graph_replays, "launches": launches, "cli_euroc": cli}
 
 
+# ------------------------------------------------------ configs 2 and 4
+
+def top_operators(fn, n: int = 8) -> dict | None:
+    """{operator: [device ms, calls]} of the costliest operators of one eager
+    call of fn (op-level tracing), or None where no device time is seen."""
+    try:
+        _, ops = profiled_kernels(fn, 1, ops=True)
+    except NoDeviceTime:
+        return None
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:n]
+    return {e.key: [round(e.self_device_time_total / 1e3, 4), e.count] for e in top}
+
+
+def profile_once(fn):
+    """(device ms, kernels) of one call of fn from the profiler, or (None,
+    None) where it records no device time."""
+    try:
+        return device_profile(fn, 1)
+    except NoDeviceTime:
+        return None, None
+
+
+def phase_ba(gpu: str):
+    """Bundle adjustment at the bench's window shape, eager and as the
+    captured graph the live loop dispatches."""
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.ba.schur import BAProblem, bundle_adjust, lm_passes
+    from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.ops.graph import CapturedStep
+
+    dev = torch.device("cuda", 0)
+    problem, T_gt = bench.ba_bench_problem(dev)
+    kw = dict(max_iters=bench.BA_MAX_ITERS)
+
+    def gap(T_a, T_b) -> float:
+        return float(se3.log(se3.compose(T_a, se3.inverse(T_b))).abs().max())
+
+    first = bundle_adjust(problem, bench.CAM, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = bundle_adjust(problem, bench.CAM, **kw)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("two bundle_adjust runs on the card differ")
+    t0 = time.perf_counter()
+    cpu = bundle_adjust(BAProblem(*(t.cpu() for t in problem)), bench.CAM, **kw)
+    cpu_s = time.perf_counter() - t0
+    c0, c, c_cpu = float(again.initial_cost), float(again.cost), float(cpu.cost)
+    if not (c < c0 and abs(c - c_cpu) <= BA_COST_RTOL * c_cpu):
+        raise AssertionError(f"BA cost {c0} -> {c} on the card, {c_cpu} on the CPU")
+    dev_cpu = gap(again.T_cw.cpu(), cpu.T_cw)
+    if not dev_cpu <= BA_POSE_ATOL:
+        raise AssertionError(f"BA poses card vs CPU differ by {dev_cpu} > {BA_POSE_ATOL}")
+    err0, err = gap(problem.T_cw, T_gt), gap(again.T_cw, T_gt)
+    if not err < err0:
+        raise AssertionError(f"BA pose error {err0} -> {err}: no improvement")
+
+    def solve(*q):
+        out = bundle_adjust(BAProblem(*q), bench.CAM, **kw)
+        return out.T_cw, out.points, out.cost, out.initial_cost, out.iterations
+
+    t0 = time.perf_counter()
+    step = CapturedStep(solve, tuple(problem))
+    capture_s = time.perf_counter() - t0
+    out = step(*problem)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError("the captured solve differs from the eager one")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    step(*problem)
+    end.record()
+    replay_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end)
+    busy_ms, kernels = profile_once(lambda: step(*problem))
+    top = top_operators(lambda: bundle_adjust(problem, bench.CAM, **kw))
+    iters = int(again.iterations)
+    return {
+        "iterations": iters, "iterations_cpu": int(cpu.iterations),
+        "lm_passes_executed": lm_passes(bench.BA_MAX_ITERS),
+        "cost": [c0, c], "cost_cpu": c_cpu, "card_vs_cpu": dev_cpu,
+        "pose_error": [err0, err], "two_runs_bit_equal": True,
+        "eager_ms": eager_ms, "eager_host_ms": host_ms,
+        "eager_iters_per_s": iters / (eager_ms / 1e3),
+        "graph_equals_eager": True, "capture_s": round(capture_s, 2),
+        "replay_ms": replay_ms, "replay_host_ms": replay_host_ms,
+        "replay_iters_per_s": iters / (replay_ms / 1e3),
+        "replay_device_busy_ms": busy_ms, "replay_kernels": kernels,
+        "replay_idle_share": None if busy_ms is None else 1.0 - busy_ms / replay_ms,
+        "top_ops_device_ms_and_calls_per_solve": top,
+        "bench": bench.bench_ba_iters(dev), "cpu_s": round(cpu_s, 2), "gpu": gpu,
+    }
+
+
+def phase_refine_kernel(frames, pts, cam):
+    """K3 at the depth-refinement shape against its plain version, and
+    `refine_inverse_depth` on the card against the CPU."""
+    from uwslam_tpu_torch import ops
+    from uwslam_tpu_torch.image.pyramid import build_pyramid
+    from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.tracking.depth_refine import refine_inverse_depth
+
+    dev = frames.device
+    pyr = build_pyramid(frames[1], levels=1)
+    texels = ops.pack_texels(pyr.images[0], pyr.grad_x[0], pyr.grad_y[0])
+    W, H = cam.width, cam.height
+    uv = pts.uv[:1].clone() + 0.37                      # subpixel, as projections are
+    edge = torch.tensor([[W - 1, 10.0], [W - 1, 57.25], [W - 1, H - 1], [33.5, H - 1],
+                         [0.0, 0.0], [W - 1.5, H - 1.5], [W - 1 + 1e-3, 5.0], [-1e-3, 5.0],
+                         [float("nan"), 3.0]], device=dev)
+    uv[0, : len(edge)] = edge
+    before = ops.cuda_bilinear_sample.launches
+    k = ops.cuda_bilinear_sample(texels, uv, texels=True)
+    if ops.cuda_bilinear_sample.launches != before + 1:
+        raise AssertionError("K3 did not launch at the depth-refinement shape")
+    err = compare(k, ops.bilinear_sample_texels_plain(texels, uv), SAMPLE_ATOL,
+                  "bilinear_sample at the depth-refinement shape")
+    if k[1][0, : len(edge)].tolist() != [True] * 6 + [False] * 3:
+        raise AssertionError(f"K3 validity at the edge points: {k[1][0, :len(edge)].tolist()}")
+    planes = ops.unpack_texels(texels).contiguous()
+    grid_err = check_grid_sample(k, planes, uv, "depth-refinement shape")
+    times = time_pairs(
+        {"refine": (lambda: ops.cuda_bilinear_sample(texels, uv, texels=True),
+                    lambda: ops.bilinear_sample_texels_plain(texels, uv))},
+        {"refine": bound_sampler(k[1], 3, 8)},
+        {"refine": grid_sample_call(planes, uv)},
+    )["refine"]
+    one = pts.select(slice(0, 1))
+    T = se3.exp(torch.tensor([0.012, 0.004, 0.002, 0.001, -0.001, 0.002], device=dev))
+    before = ops.cuda_bilinear_sample.launches
+    ref = refine_inverse_depth(one, T, pyr.images[0], pyr.grad_x[0], pyr.grad_y[0], cam)
+    launches = ops.cuda_bilinear_sample.launches - before
+    if launches != 5:
+        raise AssertionError(f"refine_inverse_depth launched K3 {launches} times, not 5")
+    cpu = refine_inverse_depth(
+        type(one)(*(None if f is None else f.cpu() for f in one)), T.cpu(),
+        *(x[0].cpu() for x in (pyr.images, pyr.grad_x, pyr.grad_y)), cam)
+    rho_dev = float((ref.inv_depth.cpu() - cpu.inv_depth).abs().max())
+    flips = int((ref.good.cpu() != cpu.good).sum())
+    if not rho_dev <= 1e-4 or flips > 4:
+        raise AssertionError(f"refine_inverse_depth card vs CPU: {rho_dev}, {flips} flags flip")
+    return {"max_abs_err": err, "vs_grid_sample": grid_err, "launches_per_refinement": launches,
+            "refine_card_vs_cpu": rho_dev, "good_flags_flipped": flips,
+            "good_share": float(ref.good.float().mean())}, times
+
+
+def scene_sequence(dev):
+    """SCENE_FRAMES views of the multi-plane scene along a sinusoidal twist,
+    rendered on the card -> (frames (N, H, W), camera-from-world poses)."""
+    import math
+
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.utils.synthetic import render_scene_view
+
+    amp = torch.tensor(SCENE_TWIST_AMP, dtype=torch.float32, device=dev)
+    poses = se3.exp(torch.stack([
+        amp * math.sin(2.0 * math.pi * i / SCENE_FRAMES) for i in range(SCENE_FRAMES)]))
+    return torch.stack([render_scene_view(bench.CAM, T) for T in poses]), poses
+
+
+def front_end_system(device, *, bootstrap=False, ba=False, features=True, reference=False,
+                     tracker=None):
+    """A SlamSystem of this slice's configurations on `device`: the CLI's
+    default tracker (5 levels, track levels 3-0) on the scene, or `tracker`."""
+    from dataclasses import replace
+
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.camera import Calibration
+    from uwslam_tpu_torch.config import SlamConfig, TrackerConfig
+    from uwslam_tpu_torch.system import SlamSystem
+    from uwslam_tpu_torch.tracking.robust import WeightKind
+
+    tracker = TrackerConfig(mono_depth=SCENE_MONO_DEPTH) if tracker is None else tracker
+    tracker = replace(tracker, depth_bootstrap=bootstrap)
+    config = SlamConfig(tracker=tracker, use_features=features, use_ba=ba)
+    if reference:
+        config = replace(config, use_reloc=False, tracker=replace(
+            tracker, track_levels=(0,), max_iterations=10, weight_kind=WeightKind.NONE))
+    calib = Calibration(raw=bench.CAM, out_width=bench.CAM.width, out_height=bench.CAM.height)
+    return SlamSystem(calib, config, device=device)
+
+
+def drive(system, frames, pipelined=False, events=False):
+    """Frames through the system -> (first frame with a depth prior or None,
+    ms between frame ends or None)."""
+    step = system.process_frame_async if pipelined else system.process_frame
+    installed, marks = None, []
+    for i in range(frames.shape[0]):
+        step(frames[i], timestamp=float(i))
+        if installed is None and system._depth_prior is not None:
+            installed = i
+        if events:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+    system.flush()
+    if not events:
+        return installed, None
+    torch.cuda.synchronize()
+    return installed, [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def all_ok(system, what: str) -> None:
+    bad = [(s.frame_id, s.status) for s in system.trajectory if s.status != "ok"]
+    if bad or not all(np.isfinite(s.T_wc).all() for s in system.trajectory):
+        raise AssertionError(f"{what}: frames not ok: {bad[:10]}")
+
+
+def pose_gap(a, b) -> float:
+    """Largest |se3.log| difference of two systems' exported poses."""
+    from uwslam_tpu_torch.lie import se3
+
+    pa, pb = (torch.from_numpy(s.export_trajectory()[1]) for s in (a, b))
+    return float((se3.log(pa) - se3.log(pb)).abs().max())
+
+
+def phase_config2(scene, scene_poses, plane_frames, plane_poses, table):
+    """Config 2 on the card, synchronous, with and without the bootstrap,
+    against the port's CPU run; and the reference-mode preset."""
+    dev = scene.device
+    t0 = time.perf_counter()
+    boot = front_end_system(dev, bootstrap=True)
+    (installed, _), launches = counted(table, "the bootstrap path", lambda: drive(boot, scene))
+    card_s = time.perf_counter() - t0
+    all_ok(boot, "config 2")
+    if installed is None or installed > PRIOR_INSTALLED_BY:
+        raise AssertionError(f"depth prior installed at frame {installed}")
+    again = front_end_system(dev, bootstrap=True)
+    drive(again, scene)
+    if pose_gap(boot, again) != 0.0:
+        raise AssertionError("two config-2 runs on the card differ")
+    flat = front_end_system(dev)
+    drive(flat, scene)
+    all_ok(flat, "config 2 at constant depth")
+    ate, ate_flat = live_ate(boot, scene_poses), live_ate(flat, scene_poses)
+    if not (ate < ate_flat and ate <= CONFIG2_ATE_MAX):
+        raise AssertionError(f"bootstrap ATE {ate} m, constant depth {ate_flat} m")
+    t0 = time.perf_counter()
+    cpu = front_end_system("cpu", bootstrap=True)
+    drive(cpu, scene.cpu())
+    cpu_s = time.perf_counter() - t0
+    all_ok(cpu, "config 2 on the CPU")
+    ate_cpu, gap = live_ate(cpu, scene_poses), pose_gap(boot, cpu)
+    statuses = lambda s: [x.status for x in s.trajectory]   # noqa: E731
+    if not (statuses(boot) == statuses(cpu) and ate_cpu <= CONFIG2_ATE_MAX
+            and abs(ate - ate_cpu) <= 0.15 * ate_cpu and gap <= CONFIG2_POSE_ATOL):
+        raise AssertionError(f"config 2 card vs CPU: ATE {ate} vs {ate_cpu} m, poses {gap}")
+    # How far last-bit differences carry on this path: the same frames plus
+    # noise far below one gray level, on the card.
+    noise = CONFIG2_NOISE * torch.randn(scene.shape, generator=torch.Generator().manual_seed(0))
+    shaken = front_end_system(dev, bootstrap=True)
+    drive(shaken, scene + noise.to(dev))
+    all_ok(shaken, "config 2 with 1e-4 of noise")
+    by_noise = pose_gap(boot, shaken)
+    if not by_noise <= CONFIG2_POSE_ATOL:
+        raise AssertionError(f"1e-4 gray levels of noise moved config 2's poses by {by_noise}")
+    ref = front_end_system(dev, reference=True,
+                           tracker=live_config().tracker)
+    n = SCENE_FRAMES
+    drive(ref, plane_frames[:n])
+    all_ok(ref, "reference mode")
+    ate_ref = live_ate(ref, plane_poses[:n])
+    # The last pair was tracked on patch points if its verified matches
+    # reached the front end's minimum (else the top-K selection stands in).
+    matches = int(ref._last_matches[2].sum())
+    if not ate_ref <= REFERENCE_ATE_MAX or matches < ref.config.features.min_matches:
+        raise AssertionError(f"reference mode: ATE {ate_ref} m, {matches} matches")
+    kfs = lambda s: [x.frame_id for x in s.trajectory if x.is_keyframe]   # noqa: E731
+    return {
+        "ate": ate, "ate_constant_depth": ate_flat, "ate_cpu": ate_cpu,
+        "card_vs_cpu_pose": gap, "statuses": "equal", "two_card_runs": "bit-equal",
+        "noise_1e-4_moves_card_poses_by": by_noise, "keyframes_with_noise": kfs(shaken),
+        "prior_installed_at": installed, "keyframes": kfs(boot), "keyframes_cpu": kfs(cpu),
+        "launches": launches, "frames": n, "card_s": round(card_s, 2), "cpu_s": round(cpu_s, 2),
+        "reference_mode": {"ate": ate_ref, "frames": n, "matches_last_pair": matches,
+                           "patch_points_last_pair": 25 * min(matches, 200)},
+    }, boot
+
+
+def phase_boot_graph_vs_eager(scene, n: int = 3):
+    """The bootstrap megastep's replay against its eager call on the same
+    inputs (the frame's RANSAC uniforms included), every output bit-equal."""
+    from uwslam_tpu_torch.ops.graph import tree_leaves
+
+    system = front_end_system(scene.device, bootstrap=True)
+    compared = replayed = 0
+    for i in range(scene.shape[0]):
+        if replayed < n and system._can_pipeline(None):
+            prev_pyr, prev_pts, _ = system._prev
+            kp, desc = system._prev_feats
+            want = system._build_step_boot()(
+                scene[i], prev_pyr, prev_pts, kp.uv, desc, kp.valid, system._depth_prior,
+                system._velocity, system._T_wc, system.keyframes.latest.T_wc, system._eye,
+                system._ransac_uniforms(desc.shape[0], system._frame_id))
+            system.process_frame_async(scene[i], timestamp=float(i))
+            rec = system._pipe_queue[-1]
+            got = (rec["pyr"], *rec["feats"], system._velocity, system._T_wc, rec["prior"],
+                   rec["kp_depth"], rec["pts"], rec["diag"])
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"frame {i}: the bootstrap graph's replay differs from the eager "
+                        f"megastep by {float((a.float() - b.float()).abs().max())}")
+                compared += 1
+            replayed += 1
+        elif replayed < n:
+            system.process_frame_async(scene[i], timestamp=float(i))
+        else:
+            break
+    system.flush()
+    if replayed != n:
+        raise AssertionError(f"only {replayed} frames entered the bootstrap megastep")
+    return {"frames": n, "tensors_bit_equal": compared}
+
+
+def phase_config2_pipelined(scene, scene_poses, table, sync_system):
+    """Config 2 through the pipelined loop against the synchronous run, and a
+    profiled window of the bootstrap megastep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = scene.device
+    system = front_end_system(dev, bootstrap=True)
+    t0 = time.perf_counter()
+    (_, frame_ms), launches = counted(table, "the pipelined bootstrap path",
+                                      lambda: drive(system, scene, pipelined=True, events=True))
+    card_s = time.perf_counter() - t0
+    all_ok(system, "config 2 pipelined")
+    if [s.frame_id for s in system.trajectory] != list(range(scene.shape[0])):
+        raise AssertionError("config 2 pipelined: frame ids out of order")
+    ate, sync_ate = live_ate(system, scene_poses), live_ate(sync_system, scene_poses)
+    gap = pose_gap(system, sync_system)
+    if not abs(ate - sync_ate) <= PIPE_VS_SYNC_ATE or not gap <= LIVE_T_ATOL:
+        raise AssertionError(f"config 2 pipelined ATE {ate} m vs synchronous {sync_ate} m, "
+                             f"poses {gap}")
+    (key,) = [k for k in system._steps if k[0] == "boot"]
+    step = system._steps[key]
+    if step.replays < scene.shape[0] - 16:
+        raise AssertionError(f"only {step.replays} frames went through the bootstrap graph")
+    steady = frame_ms[-(step.replays - 4):]
+    # A profiled window of a fresh run, once it is in the megastep.
+    fresh = front_end_system(dev, bootstrap=True)
+    warm = scene.shape[0] - BOOT_PROFILED_FRAMES - 2
+    for i in range(warm):
+        fresh.process_frame_async(scene[i], timestamp=float(i))
+    torch.cuda.synchronize()
+    before = fresh.graph_replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(warm, warm + BOOT_PROFILED_FRAMES):
+            fresh.process_frame_async(scene[i], timestamp=float(i))
+        torch.cuda.synchronize()
+    profiled = fresh.graph_replays - before
+    prev_pyr, prev_pts, _ = fresh._prev
+    kp, desc = fresh._prev_feats
+    eager_inputs = (scene[-1], prev_pyr, prev_pts, kp.uv, desc, kp.valid, fresh._depth_prior,
+                    fresh._velocity, fresh._T_wc, fresh.keyframes.latest.T_wc, fresh._eye,
+                    fresh._ransac_uniforms(desc.shape[0], 0))
+    top = top_operators(lambda: fresh._build_step_boot()(*eager_inputs))
+    fresh.flush()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / max(profiled, 1)
+    return {
+        "launches": launches, "graph_replays": step.replays,
+        "launches_per_replay": dict(zip((k["name"] for k in table), step.kernel_launches)),
+        "ate": ate, "sync_ate": sync_ate, "pipelined_vs_sync_pose": gap,
+        "frame_ms_median": statistics.median(steady),
+        "frame_ms_p90": float(np.percentile(steady, 90)),
+        "frames_per_s": len(steady) / (sum(steady) / 1e3),
+        "profiled_frames": profiled,
+        "device_busy_ms_per_frame": busy_ms if busy_ms > 0 else None,
+        "device_launches_per_frame": sum(e.count for e in kernels) / max(profiled, 1),
+        "idle_share_vs_unprofiled": (1.0 - busy_ms / statistics.mean(steady)
+                                     if busy_ms > 0 else None),
+        "top_ops_device_ms_and_calls_per_eager_megastep": top,
+        "card_s": round(card_s, 2),
+    }
+
+
+def ba_system(device, features: bool):
+    """Config 4 at the live design point (phase 6's tracker)."""
+    return front_end_system(device, ba=True, features=features, tracker=live_config().tracker)
+
+
+def phase_config4(frames, poses, table, plain_frame_ms):
+    """Window BA: `use_features` + `use_ba` synchronous against the run
+    without BA and the CPU's; then the pipelined loop with BA on and off."""
+    dev = frames.device
+    t0 = time.perf_counter()
+    with_ba = ba_system(dev, features=True)
+    _, launches = counted(table, "the window-BA path", lambda: drive(with_ba, frames))
+    card_s = time.perf_counter() - t0
+    all_ok(with_ba, "config 4")
+    stats = dict(with_ba.ba_stats)
+    if stats["runs"] < 1 or stats["iters"] < 1 or with_ba._ba_inflight is not None:
+        raise AssertionError(f"config 4: no window solve was retired: {stats}")
+    without = front_end_system(dev, tracker=live_config().tracker)
+    drive(without, frames)
+    ate, ate_without = live_ate(with_ba, poses), live_ate(without, poses)
+    if not (ate <= 1.1 * ate_without and ate <= FEATURES_BA_ATE_MAX):
+        raise AssertionError(f"config 4 ATE {ate} m, without BA {ate_without} m")
+    moved = pose_gap(with_ba, without)
+    if moved == 0.0:
+        raise AssertionError("config 4: the window solves changed no pose")
+    t0 = time.perf_counter()
+    cpu = ba_system("cpu", features=True)
+    drive(cpu, frames.cpu())
+    cpu_s = time.perf_counter() - t0
+    gap = pose_gap(with_ba, cpu)
+    if not gap <= LIVE_T_ATOL or cpu.ba_stats["runs"] != stats["runs"]:
+        raise AssertionError(f"config 4 card vs CPU: poses {gap}, solves {stats['runs']} vs "
+                             f"{cpu.ba_stats['runs']}")
+    # The pipelined loop: keyframes carry features for relocalization, which
+    # is all window BA needs; the frame itself is the plain megastep.
+    pipe = ba_system(dev, features=False)
+    _, ms_on = drive(pipe, frames, pipelined=True, events=True)
+    all_ok(pipe, "pipelined loop with window BA")
+    if pipe.ba_stats["runs"] < 1 or not any(k[0] == "ba" for k in pipe._steps):
+        raise AssertionError(f"pipelined loop: no captured window solve: {pipe.ba_stats}")
+    pipe2 = ba_system(dev, features=False)
+    _, ms_on2 = drive(pipe2, frames, pipelined=True, events=True)
+    ate_pipe = live_ate(pipe, poses)
+    if not ate_pipe <= PIPE_BA_ATE_MAX:
+        raise AssertionError(f"pipelined loop with window BA: ATE {ate_pipe} m")
+    cpu_pipe = ba_system("cpu", features=False)
+    drive(cpu_pipe, frames.cpu(), pipelined=True)
+
+    def summary(ms):
+        steady = ms[LIVE_WARMUP:]
+        median = statistics.median(steady)
+        return {"median": median, "p90": float(np.percentile(steady, 90)),
+                "max": max(steady), "mean": statistics.mean(steady),
+                "frames_over_3x_median": sum(m > 3 * median for m in steady)}
+
+    return {
+        "launches": launches, "ba": stats, "ate": ate, "ate_without_ba": ate_without,
+        "ba_moved_poses_by": moved, "card_vs_cpu": gap,
+        "keyframes": [s.frame_id for s in with_ba.trajectory if s.is_keyframe],
+        "card_s": round(card_s, 2), "cpu_s": round(cpu_s, 2),
+        "pipelined": {
+            "graph_replays": pipe.graph_replays, "ba": dict(pipe.ba_stats),
+            "ate": ate_pipe, "ate_second_run": live_ate(pipe2, poses),
+            "ate_cpu": live_ate(cpu_pipe, poses),
+            "frame_ms_ba_on": summary(ms_on), "frame_ms_ba_on_second_run": summary(ms_on2),
+            "frame_ms_ba_off": summary(plain_frame_ms),
+        },
+    }
+
+
+def phase_cli_front_end(frames, poses):
+    """The CLI's flags of this slice on the 8-bit dataset of phase 8."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rgb, calib, gt = write_dataset(frames[:CLI_FRAMES], poses[:CLI_FRAMES], Path(tmp))
+        base = ["-d", str(rgb), "-c", str(calib), "--tum-gt", str(gt), "--levels", "3",
+                "--track-levels", "1,0", "--mono-depth", "2.0", "--platform", "cuda"]
+        for name, extra in (("features_depth_bootstrap", ["--features", "--depth-bootstrap"]),
+                            ("features_ba", ["--features", "--ba"])):
+            out[name] = run_cli(base + extra + ["--trajectory-out",
+                                                str(Path(tmp) / f"{name}.txt")], name)
+            if not out[name]["ate"] <= CLI_ATE_MAX:
+                raise AssertionError(f"CLI {name}: ATE {out[name]['ate']} m > {CLI_ATE_MAX} m")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card is visible; nothing was run")
@@ -1470,6 +2002,30 @@ def main() -> None:
     rectified = phase_rectification(poses, table)
     say("12 rectification", json.dumps(rectified) + f"; {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    say("13 bundle adjustment", json.dumps(phase_ba(gpu)) + f"; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    refine_errs, refine_times = phase_refine_kernel(frames, live_pts, cam)
+    say("14 K3 at the depth-refinement shape", json.dumps(refine_errs) + "; per call: "
+        + json.dumps(refine_times) + f"; {gpu}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scene, scene_poses = scene_sequence(dev)
+    config2, boot_system = phase_config2(scene, scene_poses, frames, poses, table)
+    say("15 config 2 (synchronous)", json.dumps(config2) + f"; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    say("16a bootstrap graph vs eager", json.dumps(phase_boot_graph_vs_eager(scene)))
+    config2_pipe = phase_config2_pipelined(scene, scene_poses, table, boot_system)
+    say("16b config 2 (pipelined)", json.dumps(config2_pipe) + f"; {gpu}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del scene, boot_system
+    t0 = time.perf_counter()
+    config4 = phase_config4(frames, poses, table, pipe_ms)
+    say("17 config 4 (window BA)", json.dumps(config4) + f"; {gpu}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    say("18 cli (configs 2 and 4)", json.dumps(phase_cli_front_end(frames, poses))
+        + f"; {time.perf_counter() - t0:.1f} s")
+
     live_k = live_times["kernels_at_live_shapes"]
     depth_launches = {k["name"]: sum(depth_paths[path]["launches"][k["name"]]
                                      for path in depth_paths) for k in table}
@@ -1481,6 +2037,9 @@ def main() -> None:
          "launches_depth": depth_launches[k["name"]],
          "launches_pipelined": pipelined["launches"][k["name"]],
          "launches_rectified": rectified["launches"][k["name"]],
+         "launches_bootstrap": config2["launches"][k["name"]],
+         "launches_bootstrap_pipelined": config2_pipe["launches"][k["name"]],
+         "launches_window_ba": config4["launches"][k["name"]],
          "max_abs_err": max(e[k["name"]] for e in (
              errs, errs_live, errs_seq, rectified["parity_max_abs_err"])),
          "ms": times[k["name"]]["device_ms"],
@@ -1502,6 +2061,12 @@ def main() -> None:
                         f"plain_ms_depth_{shape}": t["plain_device_ms"],
                         f"bound_ms_depth_{shape}": t["bound_ms"],
                         f"library_ms_depth_{shape}": t["library_ms"]})
+    # K3 with C = 3 texels at the depth-refinement shape (1 x 480 x 640, 2048).
+    sampler["max_abs_err"] = max(sampler["max_abs_err"], refine_errs["max_abs_err"])
+    sampler.update({"ms_refine": refine_times["device_ms"],
+                    "plain_ms_refine": refine_times["plain_device_ms"],
+                    "bound_ms_refine": refine_times["bound_ms"],
+                    "library_ms_refine": refine_times["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

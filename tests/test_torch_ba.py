@@ -1,0 +1,213 @@
+"""Parity of the port's Schur bundle adjustment (`ba.schur`) with the JAX
+package on the same numpy inputs (5 keyframes x 128 landmarks, fully
+connected, the scene of `tests/test_ba.py` from a numpy seed).
+
+Tolerances: normal-equation blocks rtol 2e-4 of each block's largest entry
+(f32 sums of 128 to 640 terms in another order); Schur steps held to a
+float64 solve of the same equations, with JAX's step beside it at the same
+bound; `bundle_adjust` poses atol 2e-4 on the twist of the pose difference
+and costs rtol 1e-2 (an LM trajectory amplifies last-bit differences of
+the accept / reject comparisons), iterations within 2.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from uwslam_tpu.ba import schur as jschur  # noqa: E402
+from uwslam_tpu.camera import PinholeCamera as JaxCamera  # noqa: E402
+from uwslam_tpu_torch.ba import schur  # noqa: E402
+from uwslam_tpu_torch.interop import ba_problem_from_numpy, camera_from_jax  # noqa: E402
+from uwslam_tpu_torch.lie import se3  # noqa: E402
+
+JCAM = JaxCamera(fx=300.0, fy=300.0, cx=159.5, cy=119.5, width=320, height=240)
+CAM = camera_from_jax(JCAM)
+
+
+def _exp(xi):
+    return se3.exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()
+
+
+def make_problem(seed=0, num_kf=5, num_lm=128, noise_px=0.3, pose_noise=0.01,
+                 point_noise=0.02, outliers=0):
+    """-> (JAX BAProblem, the port's, ground-truth T_cw (M, 4, 4))."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-1.5, 1.5, num_lm), rng.uniform(-1.0, 1.0, num_lm),
+                    rng.uniform(3.0, 6.0, num_lm)], axis=-1).astype(np.float32)
+    T_gt = np.stack([
+        _exp([x, 0.02 * i, 0.01 * i, 0.0, 0.01 * i, 0.0])
+        for i, x in enumerate(np.linspace(0, 0.4, num_kf))
+    ])
+    kf = np.repeat(np.arange(num_kf), num_lm).astype(np.int32)
+    lm = np.tile(np.arange(num_lm), num_kf).astype(np.int32)
+    p_c = np.einsum("oij,oj->oi", T_gt[kf][:, :3, :3], pts[lm]) + T_gt[kf][:, :3, 3]
+    uv = np.stack([JCAM.fx * p_c[:, 0] / p_c[:, 2] + JCAM.cx,
+                   JCAM.fy * p_c[:, 1] / p_c[:, 2] + JCAM.cy], axis=-1)
+    uv = (uv + noise_px * rng.standard_normal(uv.shape)).astype(np.float32)
+    valid = ((uv[:, 0] >= 0) & (uv[:, 0] <= JCAM.width - 1) & (uv[:, 1] >= 0)
+             & (uv[:, 1] <= JCAM.height - 1) & (p_c[:, 2] > 0.1))
+    if outliers:
+        bad = rng.choice(len(uv), outliers, replace=False)
+        uv[bad] += rng.uniform(30, 60, (outliers, 2)).astype(np.float32)
+    dT = pose_noise * rng.standard_normal((num_kf, 6))
+    dT[0] = 0.0
+    T_init = np.stack([_exp(d) @ T for d, T in zip(dT, T_gt)]).astype(np.float32)
+    pts_init = (pts + point_noise * rng.standard_normal(pts.shape)).astype(np.float32)
+    jp = jschur.BAProblem(T_cw=jnp.asarray(T_init), points=jnp.asarray(pts_init),
+                          obs_kf=jnp.asarray(kf), obs_lm=jnp.asarray(lm),
+                          obs_uv=jnp.asarray(uv), obs_valid=jnp.asarray(valid))
+    return jp, ba_problem_from_numpy(jp, device="cpu"), T_gt
+
+
+def _close_blocks(a, b, rtol=2e-4):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= rtol * max(np.abs(a).max(), 1e-12)
+
+
+def _pose_gap(T_a, T_b):
+    """Largest |log(T_a T_b^-1)| entry over the poses."""
+    Ta, Tb = torch.from_numpy(np.array(T_a)), torch.from_numpy(np.array(T_b))
+    return float(se3.log(se3.compose(Ta, se3.inverse(Tb))).abs().max())
+
+
+def test_reproject_residuals_match_jax():
+    jp, tp, _ = make_problem()
+    rj, vj = jschur.reproject_residuals(jp, JCAM)
+    rt, vt = schur.reproject_residuals(tp, CAM)
+    assert np.array_equal(np.asarray(vj), vt.numpy())
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=2e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_build_normal_equations_match_jax(seed):
+    jp, tp, _ = make_problem(seed)
+    out_j = jschur.build_normal_equations(jp, JCAM, 2.0)
+    out_t = schur.build_normal_equations(tp, CAM, 2.0)
+    for name, a, b in zip(("U", "V", "W", "g_p", "g_l", "cost"), out_j, out_t):
+        _close_blocks(a, b.numpy())
+
+
+def test_normal_equations_ignore_invalid_observations():
+    """An invalid slot weighs nothing, whatever indices it carries."""
+    _, tp, _ = make_problem()
+    half = tp._replace(obs_valid=tp.obs_valid & (torch.arange(len(tp.obs_valid)) % 2 == 0))
+    moved = half._replace(
+        obs_uv=torch.where(half.obs_valid[:, None], half.obs_uv, half.obs_uv + 100.0),
+        obs_kf=torch.where(half.obs_valid, half.obs_kf, 0),
+        obs_lm=torch.where(half.obs_valid, half.obs_lm, 0),
+    )
+    for a, b in zip(schur.build_normal_equations(half, CAM), schur.build_normal_equations(moved, CAM)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("num_fixed", [1, 2])
+def test_solve_schur_matches_float64_and_jax(num_fixed):
+    jp, tp, _ = make_problem()
+    eq_j = jschur.build_normal_equations(jp, JCAM, 2.0)[:5]
+    eq_t = schur.build_normal_equations(tp, CAM, 2.0)[:5]
+    lam = 1e-3
+    dp_j, dl_j = jschur.solve_schur(*eq_j, jnp.float32(lam), True, num_fixed)
+    dp_t, dl_t = schur.solve_schur(*eq_t, torch.tensor(lam), True, num_fixed)
+    dp_r, dl_r = schur.solve_schur(*(x.double() for x in eq_t), torch.tensor(lam).double(),
+                                   True, num_fixed)
+    # f32 against the f64 solve of the same equations: the reduced system
+    # of this scene is conditioned ~1e4, so 1e-3 relative.
+    for ours, theirs, ref in ((dp_t, dp_j, dp_r), (dl_t, dl_j, dl_r)):
+        bound = 1e-3 * float(ref.abs().max())
+        assert float((ours.double() - ref).abs().max()) <= bound
+        assert float(np.abs(np.asarray(theirs, np.float64) - ref.numpy()).max()) <= bound
+    assert float(dp_t[:num_fixed].abs().max()) == 0.0     # the gauge poses do not move
+
+
+def test_inv3x3_matches_linalg():
+    rng = np.random.default_rng(3)
+    M = torch.from_numpy(rng.standard_normal((64, 3, 3)).astype(np.float32))
+    M = M @ M.transpose(-1, -2) + 0.5 * torch.eye(3)
+    np.testing.assert_allclose(schur._inv3x3(M).numpy(), torch.linalg.inv(M).numpy(),
+                               rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(schur._inv3x3(M).numpy(), np.asarray(jschur._inv3x3(jnp.asarray(M.numpy()))),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("outliers,kwargs", [
+    (6, dict()),
+    (6, dict(num_fixed_poses=2, pose_prior_weight=1e3)),
+    (0, dict(trim_px=None)),
+], ids=["default", "window", "no-trim"])
+def test_bundle_adjust_matches_jax(outliers, kwargs):
+    jp, tp, T_gt = make_problem(outliers=outliers)
+    out_j = jschur.bundle_adjust(jp, JCAM, max_iters=12, **kwargs)
+    out_t = schur.bundle_adjust(tp, CAM, max_iters=12, **kwargs)
+    assert _pose_gap(out_t.T_cw.numpy(), out_j.T_cw) < 2e-4
+    np.testing.assert_allclose(float(out_t.initial_cost), float(out_j.initial_cost), rtol=1e-4)
+    np.testing.assert_allclose(float(out_t.cost), float(out_j.cost), rtol=1e-2)
+    assert abs(int(out_t.iterations) - int(out_j.iterations)) <= 2
+    assert float(out_t.cost) < float(out_t.initial_cost)
+    np.testing.assert_allclose(out_t.points.numpy(), np.asarray(out_j.points), atol=5e-3)
+
+
+def test_bundle_adjust_recovers_poses():
+    _, tp, T_gt = make_problem(seed=4, noise_px=0.1)
+    before = _pose_gap(tp.T_cw.numpy(), T_gt)
+    out = schur.bundle_adjust(tp, CAM, max_iters=15)
+    assert _pose_gap(out.T_cw.numpy(), T_gt) < 0.25 * before
+    assert torch.equal(out.T_cw[0], tp.T_cw[0])           # the gauge anchor stays
+
+
+def test_bundle_adjust_repeats_bit_for_bit():
+    _, tp, _ = make_problem(seed=5)
+    a = schur.bundle_adjust(tp, CAM, max_iters=6)
+    b = schur.bundle_adjust(tp, CAM, max_iters=6)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_finished_solve_does_no_further_update():
+    """With the masked loop a finished state stays as it is: the passes after
+    `done` change nothing and are not counted. From an exact start no step
+    is accepted, the damping grows by 5 per pass and the loop ends when it
+    passes 1e5 (1e-3 * 5^12): 13 passes of the 20, where a while_loop would
+    stop."""
+    _, tp, _ = make_problem(seed=6, noise_px=0.0, pose_noise=0.0, point_noise=0.0)
+    tp = tp._replace(obs_uv=schur.reproject_residuals(tp, CAM)[0] + tp.obs_uv)  # exact: cost 0
+    out = schur.bundle_adjust(tp, CAM, max_iters=20, trim_px=None)
+    assert float(out.initial_cost) == 0.0 and int(out.iterations) == 13
+    assert torch.equal(out.T_cw, tp.T_cw) and torch.equal(out.points, tp.points)
+    assert schur.lm_passes(10) == 29 and schur.lm_passes(10, trim=False) == 10
+
+
+def test_padded_poses_stay_put():
+    """Identity poses without observations (the padding to the window's
+    capacity) are pinned by the pose prior; the real poses still improve.
+    (The prior's cost term is a mean over all poses, so padding changes the
+    accept / reject sequence: the two solves agree to 2e-3, not to bits.)"""
+    _, tp, T_gt = make_problem(seed=7)
+    pad = torch.eye(4).expand(3, 4, 4)
+    padded = tp._replace(T_cw=torch.cat([tp.T_cw, pad]))
+    kw = dict(max_iters=8, num_fixed_poses=2, pose_prior_weight=1e3)
+    a = schur.bundle_adjust(tp, CAM, **kw)
+    b = schur.bundle_adjust(padded, CAM, **kw)
+    assert _pose_gap(a.T_cw.numpy(), b.T_cw[:5].numpy()) < 2e-3
+    np.testing.assert_allclose(b.T_cw[5:].numpy(), pad.numpy(), atol=1e-6)
+    assert float(b.cost) < float(b.initial_cost)
+
+
+def test_bench_problem_is_the_window_design_point():
+    """`bench.ba_bench_problem`: 10 keyframes x 1024 landmarks, fully
+    connected, from a numpy seed; a few LM passes already cut the cost and
+    the pose error."""
+    from uwslam_tpu_torch import bench
+
+    problem, T_gt = bench.ba_bench_problem("cpu")
+    again, _ = bench.ba_bench_problem("cpu")
+    assert all(torch.equal(a, b) for a, b in zip(problem, again))
+    assert problem.T_cw.shape == (10, 4, 4) and problem.points.shape == (1024, 3)
+    assert problem.obs_uv.shape == (10240, 2) and int(problem.obs_valid.sum()) > 9000
+    assert torch.equal(problem.T_cw[0], T_gt[0])                  # the gauge anchor is exact
+    out = schur.bundle_adjust(problem, bench.CAM, max_iters=3, trim_px=None)
+    assert float(out.cost) < 0.1 * float(out.initial_cost)
+    assert _pose_gap(out.T_cw.numpy(), T_gt.numpy()) < 0.5 * _pose_gap(problem.T_cw.numpy(),
+                                                                       T_gt.numpy())

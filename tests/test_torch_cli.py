@@ -25,6 +25,7 @@ from uwslam_tpu.lie import so3 as jso3  # noqa: E402
 from uwslam_tpu.utils.synthetic import render_plane_view  # noqa: E402
 from uwslam_tpu_torch.cli.main import UNPORTED_FLAGS, build_parser  # noqa: E402
 from uwslam_tpu_torch.cli.main import main as port_main  # noqa: E402
+from test_torch_ransac import jax_accelerator_branch  # noqa: E402
 
 JCAM = JaxCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
 ATE = re.compile(r"ATE RMSE \(Sim3-aligned\): ([0-9.]+) m over (\d+) poses")
@@ -219,6 +220,56 @@ def test_unported_flags_exit_nonzero_naming_the_roadmap(dataset, tmp_path, capsy
     assert port_main(argv) != 0
     assert "ROADMAP slice" in capsys.readouterr().err
     assert not (tmp_path / "t.txt").exists()
+
+
+def _jax_uniforms(self, num_matches, seed):
+    import jax
+
+    H = self.config.features.ransac_hypotheses
+    return torch.from_numpy(np.array(jax.random.uniform(
+        jax.random.PRNGKey(seed), (H, num_matches), minval=1e-9, maxval=1.0)))
+
+
+@pytest.mark.parametrize("extra,atol", [
+    (("--features",), 5e-4),
+    (("--features", "--ba", "--ba-prior-weight", "1e4"), 5e-4),
+    # Level 0 only, identity weights, no failure detection: 10 Gauss-Newton
+    # steps per frame carry last-bit differences on (6.6e-4 over 18 frames
+    # against an XLA CPU build without fused multiply-adds).
+    (("--reference-mode", "--kp-per-level", "128"), 3e-3),
+    # The bootstrap feeds last-bit differences back into tracking (see
+    # tests/test_torch_features_frontend.py): 2e-2 over 18 frames.
+    (("--depth-bootstrap", "--bootstrap-block", "16", "--bootstrap-shrink", "0.5",
+      "--bootstrap-edge-ratio", "1.6"), 2e-2),
+], ids=["features", "features-ba", "reference-mode", "depth-bootstrap"])
+def test_config2_and_4_flags_match_jax_cli(dataset, tmp_path, capsys, monkeypatch, extra, atol):
+    """The flags of this slice, both CLIs on the same files from the same
+    RANSAC samples (the port's are replaced by the JAX package's draw)."""
+    from uwslam_tpu_torch.system import SlamSystem
+
+    monkeypatch.setattr(SlamSystem, "_ransac_uniforms", _jax_uniforms)
+    argv_port = _args(dataset, tmp_path / "port.txt", "--platform", "cpu", *extra)
+    argv_jax = _args(dataset, tmp_path / "jax.txt", "--platform", "cpu", *extra)
+    assert port_main(argv_port) == 0
+    out = capsys.readouterr()
+    # The JAX package on the two-view forms the port runs on every device.
+    with jax_accelerator_branch():
+        assert jax_main(argv_jax) == 0
+    m = ATE.search(out.out)
+    assert m and int(m.group(2)) == 18
+    a, b = np.loadtxt(tmp_path / "port.txt"), np.loadtxt(tmp_path / "jax.txt")
+    np.testing.assert_allclose(a, b, atol=atol)
+    m_j = ATE.search(capsys.readouterr().out)
+    assert abs(float(m.group(1)) - float(m_j.group(1))) <= max(2e-4, 0.15 * float(m_j.group(1)))
+    if "--ba" in extra:
+        assert "window BA:" in out.err
+
+
+def test_depth_bootstrap_implies_features_and_pipelines(dataset, tmp_path, capsys):
+    assert port_main(_args(dataset, tmp_path / "t.txt", "--platform", "cpu",
+                           "--depth-bootstrap")) == 0
+    err = capsys.readouterr().err
+    assert "live loop: pipelined process_frame_async" in err and "tracked 18 frames" in err
 
 
 def test_default_platform_needs_a_card(dataset, tmp_path, capsys, monkeypatch):

@@ -308,3 +308,186 @@ def test_pipelined_loop_on_card_matches_cpu(cuda_device):
     for a, b in zip(card.trajectory, cpu.trajectory):
         assert (a.status, a.is_keyframe, a.ref_kf_id) == (b.status, b.is_keyframe, b.ref_kf_id)
         assert torch.allclose(torch.from_numpy(a.T_wc), torch.from_numpy(b.T_wc), atol=1e-3)
+
+
+# ------------------- K3 at the depth-refinement shape, and the new paths
+
+def _refine_case(device, height=480, width=640, n=2048, seed=21):
+    """The frame's texels (1, H, W, 4) and 2048 projected points with some on
+    the last row, the last column, the corner and outside."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand((3, 1, height, width), generator=g) * 255.0
+    texels = ops.pack_texels(img[0], img[1], img[2]).to(device)
+    uv = torch.rand((1, n, 2), generator=g) * torch.tensor([width + 3.0, height + 3.0]) - 2.0
+    edges = torch.tensor([[width - 1.0, 3.5], [width - 1.0, height - 1.0], [5.25, height - 1.0],
+                          [0.0, 0.0], [width - 0.999, 2.0], [float("nan"), 2.0],
+                          [width - 1.5, height - 1.5]])
+    uv[0, : len(edges)] = edges
+    return texels, uv.to(device)
+
+
+def test_refine_shape_wrapper_runs_plain_version_on_cpu():
+    texels, uv = _refine_case("cpu", 48, 64, 256)
+    before = ops.cuda_bilinear_sample.launches
+    got = ops.cuda_bilinear_sample(texels, uv, texels=True)
+    want = ops.bilinear_sample_texels_plain(texels, uv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].shape == (1, 3, 256) and ops.cuda_bilinear_sample.launches == before
+    assert got[1][0, :4].all() and not got[1][0, 4:6].any()
+
+
+def test_refine_inverse_depth_samples_five_times():
+    """4 Gauss-Newton steps and the final evaluation: 5 K3 calls per
+    refinement (launches on a card)."""
+    from uwslam_tpu_torch.tracking import depth_refine
+    from uwslam_tpu_torch.tracking.points import TrackPoints
+
+    calls = []
+    real = depth_refine.cuda_bilinear_sample
+    depth_refine.cuda_bilinear_sample = lambda *a, **k: (calls.append(k), real(*a, **k))[1]
+    try:
+        img = _images((1, 48, 64), 3)
+        uv = _uv(64, 4)[None].clamp(2, 40)
+        pts = TrackPoints(uv=uv, p3d=CAM.unproject(uv, torch.full((1, 64), 2.0)),
+                          intensity=torch.full((1, 64), 100.0),
+                          valid=torch.ones(1, 64, dtype=torch.bool))
+        T = se3.exp(torch.tensor([0.02, 0.0, 0.0, 0.0, 0.0, 0.0]))
+        out = depth_refine.refine_inverse_depth(pts, T, img, img * 0.1, img * 0.2, CAM)
+    finally:
+        depth_refine.cuda_bilinear_sample = real
+    assert len(calls) == 5 and all(k == {"texels": True} for k in calls)
+    assert out.inv_depth.shape == (1, 64) and torch.isfinite(out.inv_depth).all()
+
+
+@pytest.mark.cuda
+def test_k3_at_the_depth_refinement_shape_on_card(cuda_device):
+    """C = 3 texels of one 480 x 640 frame, 2048 points: bit for bit."""
+    texels, uv = _refine_case(cuda_device)
+    before = ops.cuda_bilinear_sample.launches
+    got = ops.cuda_bilinear_sample(texels, uv, texels=True)
+    want = ops.bilinear_sample_texels_plain(texels, uv)
+    torch.cuda.synchronize()
+    assert ops.cuda_bilinear_sample.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[1][0, :4].all() and got[1][0, 6] and not got[1][0, 4:6].any()
+
+
+@pytest.mark.cuda
+def test_bundle_adjust_repeats_bit_for_bit_on_card(cuda_device):
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.ba import bundle_adjust
+
+    problem, _ = bench.ba_bench_problem(cuda_device)
+    a = bundle_adjust(problem, bench.CAM, max_iters=8)
+    b = bundle_adjust(problem, bench.CAM, max_iters=8)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert float(a.cost) < float(a.initial_cost)
+
+
+@pytest.mark.cuda
+def test_fused_linalg_matches_torch_linalg_on_card(cuda_device):
+    from uwslam_tpu_torch.utils import linalg
+
+    g = torch.Generator().manual_seed(5)
+    B = torch.randn((64, 9, 8), generator=g).to(cuda_device)
+    A = B @ B.transpose(-1, -2)                                   # rank 8
+    v, ref = linalg.smallest_eigvec_subspace(A), linalg.smallest_eigvec_spd(A)
+    assert float(torch.minimum((v - ref).abs().amax(-1), (v + ref).abs().amax(-1)).max()) < 1e-3
+    F = torch.randn((64, 3, 3), generator=g).to(cuda_device)
+    U, s, Vt = linalg.svd3_jacobi(F)
+    assert float((U * s[..., None, :] @ Vt - F).abs().max()) < 2e-5
+    # The card against the CPU run of the same forms: the same operations,
+    # so a few ulp apart (products and sums may fuse differently).
+    v_cpu = linalg.smallest_eigvec_subspace(A.cpu())
+    assert float((v.cpu() - v_cpu).abs().max()) < 2e-4
+    U_cpu, s_cpu, Vt_cpu = linalg.svd3_jacobi(F.cpu())
+    assert float((s.cpu() - s_cpu).abs().max()) < 5e-6
+    assert float((Vt.cpu() - Vt_cpu).abs().max()) < 2e-5
+
+
+def _boot_system(device):
+    from uwslam_tpu_torch.camera import Calibration
+    from uwslam_tpu_torch.config import SlamConfig, TrackerConfig
+    from uwslam_tpu_torch.system import SlamSystem
+
+    tracker = dict(LIVE_TRACKER, mono_depth=2.5, depth_bootstrap=True, bootstrap_anchor_frames=3)
+    return SlamSystem(Calibration(raw=LIVE_CAM, out_width=160, out_height=120),
+                      SlamConfig(tracker=TrackerConfig(**tracker), use_features=True),
+                      device=device)
+
+
+def _scene_frames(n):
+    from uwslam_tpu_torch.utils.synthetic import render_scene_view
+
+    return torch.stack([
+        render_scene_view(LIVE_CAM, se3.exp(torch.tensor(
+            [0.04 * i, 0.015 * i, 0.01 * i, 0.003 * i, 0.01 * i, 0.004 * i])))
+        for i in range(n)
+    ])
+
+
+@pytest.mark.cuda
+def test_boot_graph_replay_equals_the_eager_megastep_on_card(cuda_device):
+    from uwslam_tpu_torch.ops.graph import tree_leaves
+
+    frames = _scene_frames(10).to(cuda_device)
+    system = _boot_system(cuda_device)
+    replayed = 0
+    for i, f in enumerate(frames):
+        if system._can_pipeline(None):
+            prev_pyr, prev_pts, _ = system._prev
+            kp, desc = system._prev_feats
+            want = system._build_step_boot()(
+                f, prev_pyr, prev_pts, kp.uv, desc, kp.valid, system._depth_prior,
+                system._velocity, system._T_wc, system.keyframes.latest.T_wc, system._eye,
+                system._ransac_uniforms(desc.shape[0], system._frame_id),
+            )
+            system.process_frame_async(f, timestamp=float(i))
+            got = (*system._prev[:2], system._velocity, system._T_wc, system._depth_prior,
+                   system._kp_depth)
+            ref = (want[0], want[7], want[3], want[4], want[5], want[6])
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(ref)))
+            replayed += 1
+        else:
+            system.process_frame_async(f, timestamp=float(i))
+    system.flush()
+    assert replayed >= 4 and system.graph_replays == replayed
+    assert all(s.status == "ok" for s in system.trajectory)
+
+
+@pytest.mark.cuda
+def test_window_ba_on_card_matches_cpu_and_does_not_block(cuda_device):
+    """The captured window solve against the CPU's, retired inside the
+    dispatch on both (when a result arrives depends on the card's pace, and
+    the frame at which its correction lands with it); then the asynchronous
+    loop: solves retired, the trajectory as good."""
+    from uwslam_tpu_torch.camera import Calibration
+    from uwslam_tpu_torch.config import BAConfig, SlamConfig, TrackerConfig
+    from uwslam_tpu_torch.io.trajectory import ate_rmse
+    from uwslam_tpu_torch.system import SlamSystem
+
+    frames = _live_frames(40)
+    i = torch.arange(40, dtype=torch.float32)
+    s, c = torch.sin(0.35 * i), torch.cos(0.22 * i)
+    xi = torch.stack([0.28 * s, 0.10 * c, 0.05 * s, 0.010 * c, -0.012 * s, 0.015 * c], -1)
+    gt = se3.inverse(se3.exp(xi)).numpy()
+
+    def run(device, asynchronous):
+        system = SlamSystem(
+            Calibration(raw=LIVE_CAM, out_width=160, out_height=120),
+            SlamConfig(tracker=TrackerConfig(**LIVE_TRACKER), use_ba=True,
+                       ba=BAConfig(max_iterations=6, asynchronous=asynchronous)), device=device)
+        for k, f in enumerate(frames.to(device)):
+            system.process_frame_async(f, timestamp=float(k))
+        system.flush()
+        return system
+
+    card, cpu = run(cuda_device, False), run(torch.device("cpu"), False)
+    assert card.ba_stats["runs"] == cpu.ba_stats["runs"] >= 1
+    assert any(key[0] == "ba" for key in card._steps)          # one captured solve
+    a, b = card.export_trajectory()[1], cpu.export_trajectory()[1]
+    assert torch.allclose(torch.from_numpy(a), torch.from_numpy(b), atol=1e-3)
+    loose = run(cuda_device, True)
+    assert loose.ba_stats["runs"] == card.ba_stats["runs"] and loose._ba_inflight is None
+    ate = [ate_rmse(x.export_trajectory()[1][:, :3, 3], gt[:, :3, 3]) for x in (loose, card)]
+    assert ate[0] < 1.5 * ate[1] + 1e-3

@@ -34,7 +34,7 @@ from uwslam_tpu.system import SlamSystem as JaxSystem  # noqa: E402
 from uwslam_tpu.utils.synthetic import render_plane_view  # noqa: E402
 from uwslam_tpu_torch import system as tsystem  # noqa: E402
 from uwslam_tpu_torch.camera import Calibration, PinholeCamera  # noqa: E402
-from uwslam_tpu_torch.config import SlamConfig, TrackerConfig  # noqa: E402
+from uwslam_tpu_torch.config import BAConfig, SlamConfig, TrackerConfig  # noqa: E402
 from uwslam_tpu_torch.io import read_trajectory_tum  # noqa: E402
 from uwslam_tpu_torch.system import SlamSystem  # noqa: E402
 
@@ -164,13 +164,34 @@ def test_clean_sequence_never_lost():
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_features=True), dict(use_ba=True), dict(use_loop_closure=True),
-    dict(global_ba=True), dict(tracker=TrackerConfig(depth_bootstrap=True)),
+    dict(use_ba=True, ba=BAConfig(photometric=True)), dict(use_loop_closure=True),
+    dict(global_ba=True),
 ])
 def test_unported_switches_raise_naming_the_roadmap(change):
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120), SlamConfig(**change),
                    device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(use_features=True),
+    dict(use_features=True, tracker=TrackerConfig(**TRACKER, depth_bootstrap=True)),
+    dict(use_ba=True),
+    dict(use_features=True, use_ba=True),
+], ids=["features", "bootstrap", "ba", "features-ba"])
+def test_ported_switches_construct_and_run_on_the_cpu(change):
+    """Configs 2 and 4: every switch of this slice constructs and tracks the
+    clean sequence (a plane: the bootstrap may or may not install there)."""
+    change.setdefault("tracker", TrackerConfig(**TRACKER))
+    system = SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120),
+                        SlamConfig(**change), device="cpu")
+    states = [system.process_frame(_view([0.02 * i, 0.008 * i, 0, 0, 0, 0.002 * i]))
+              for i in range(6)]
+    assert all(s.status == "ok" and np.isfinite(s.T_wc).all() for s in states)
+    assert np.linalg.norm(states[-1].T_wc[:3, 3]) > 0.05
+    if change.get("use_features"):
+        assert system._prev_feats is not None and system._last_matches is not None
+        assert system.keyframes.latest.kp_desc is not None
 
 
 def test_default_device_is_the_card_and_raises_without_one(monkeypatch):

@@ -11,8 +11,12 @@ one CUDA graph replay per frame, frames uploaded one ahead by
 late); `--no-pipeline` or `--profile` gives the synchronous
 `process_frame`, and frames with a depth image (`-p`) always take it.
 `--offline` tracks the dataset in chunks with the batched tracker
-(`track_sequence_batched`, FC or IC, with depth frames under `-p`). Flags of
-later slices exit non-zero naming the ROADMAP item.
+(`track_sequence_batched`, FC or IC, with depth frames under `-p`).
+`--features` turns the feature front end on (patch points around matched
+keypoints; synchronous by the JAX package's own rule), `--depth-bootstrap`
+the depth prior (pipelined once the prior is installed), `--ba` reprojection
+window bundle adjustment, `--reference-mode` uw-slam's active pipeline.
+Flags of later slices exit non-zero naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,14 +26,9 @@ import time
 
 # Flags whose slice is not ported: flag -> (what, ROADMAP slice and item).
 UNPORTED_FLAGS = {
-    "features": ("--features (the feature front-end)", "slice 4, item 14"),
-    "ba": ("--ba (window BA)", "slice 6, item 16"),
     "photo_ba": ("--photo-ba (photometric window BA)", "slice 6, item 16"),
     "loop_closure": ("--loop-closure", "slice 7, item 17"),
     "dist_ba": ("--dist-ba (global distributed BA)", "slice 7, item 17"),
-    "depth_bootstrap": ("--depth-bootstrap (the depth prior)", "slice 3, item 11"),
-    "reference_mode": ("--reference-mode (needs the feature front-end)",
-                       "slice 4, item 14"),
     "viz_port": ("--viz-port (live view)", "slice 8, item 18"),
     "map_out": ("--map-out (PLY map export)", "slice 8, item 18"),
     "checkpoint": ("--checkpoint (session checkpoints)", "slice 8, item 18"),
@@ -60,10 +59,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--levels", type=int, default=5, help="pyramid levels")
     p.add_argument("--euroc", action="store_true",
                    help="treat -d as an EUROC mav0 dir (cam0/data/*.png)")
-    p.add_argument("--features", action="store_true", help="feature front-end")
-    p.add_argument("--ba", action="store_true", help="sliding-window bundle adjustment")
+    p.add_argument("--features", action="store_true",
+                   help="feature front end: detection and patch points around "
+                        "matched keypoints (README config 2)")
+    p.add_argument("--ba", action="store_true",
+                   help="sliding-window bundle adjustment (README config 4)")
     p.add_argument("--ba-prior-weight", type=float, default=None,
-                   help="window-BA pose-prior information weight")
+                   help="window-BA pose-prior information weight anchoring the "
+                        "window's poses to the tracked odometry (default "
+                        "BAConfig.pose_prior_weight)")
     p.add_argument("--photo-ba", action="store_true", help="photometric window BA")
     p.add_argument("--loop-closure", action="store_true",
                    help="loop detection + pose-graph correction")
@@ -72,16 +76,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mono-depth", type=float, default=1.0,
                    help="assumed scene depth for pure-mono tracking")
     p.add_argument("--reference-mode", action="store_true",
-                   help="uw-slam reference-semantics preset")
+                   help="uw-slam's active pipeline: identity weights, <= 200 "
+                        "matched keypoints x patch points, level-0 GN only, 10 "
+                        "iterations, constant depth, no BA, bootstrap or "
+                        "failure detection")
     p.add_argument("--loop-se3", action="store_true",
                    help="with --loop-closure: SE(3) pose graph instead of Sim(3)")
     p.add_argument("--depth-bootstrap", action="store_true",
-                   help="monocular depth bootstrapping (implies --features)")
+                   help="monocular depth bootstrapping: triangulate the feature "
+                        "matches against the tracked pose and select points at "
+                        "the depths of the resulting prior (implies --features)")
     p.add_argument("--num-points", type=int, default=2048,
                    help="tracked point budget per frame")
-    p.add_argument("--bootstrap-edge-ratio", type=float, default=None)
-    p.add_argument("--bootstrap-block", type=int, default=None)
-    p.add_argument("--bootstrap-shrink", type=float, default=None)
+    p.add_argument("--bootstrap-edge-ratio", type=float, default=None,
+                   help="with --depth-bootstrap: drop points whose prior read "
+                        "straddles a depth edge (cells differ by more than this "
+                        "ratio); 0 disables")
+    p.add_argument("--bootstrap-block", type=int, default=None,
+                   help="with --depth-bootstrap: cell size of the prior grid (px)")
+    p.add_argument("--bootstrap-shrink", type=float, default=None,
+                   help="with --depth-bootstrap: blend prior reads toward the "
+                        "grid's median (1.0 = the raw grid)")
     p.add_argument("--kf-min-gap", type=int, default=3,
                    help="minimum frames between keyframes")
     p.add_argument("--kf-max-gap", type=int, default=30,
@@ -230,6 +245,8 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0) if args.platform == "cuda" else torch.device("cpu")
 
+    from dataclasses import replace
+
     from .. import camera
     from ..config import FeatureConfig, KeyframeConfig, SlamConfig, TrackerConfig
     from ..io import (
@@ -253,12 +270,35 @@ def main(argv=None) -> int:
             max_iterations=args.gn_iters, weight_kind=WeightKind(args.weights),
             mono_depth=args.mono_depth, num_points=args.num_points,
             track_mode=args.track_mode, affine_brightness=args.affine,
+            depth_bootstrap=args.depth_bootstrap,
+            **{
+                name: getattr(args, name)
+                for name in ("bootstrap_edge_ratio", "bootstrap_block", "bootstrap_shrink")
+                if getattr(args, name) is not None
+            },
         ),
         features=FeatureConfig(per_level=args.kp_per_level),
         keyframes=KeyframeConfig(min_gap=args.kf_min_gap, max_gap=args.kf_max_gap),
+        use_features=args.features or args.depth_bootstrap,
+        use_ba=args.ba,
         profile=args.profile,
         trajectory_csv=args.trajectory_out,
     )
+    if args.ba_prior_weight is not None:
+        config = replace(config, ba=replace(config.ba, pose_prior_weight=args.ba_prior_weight))
+    if args.reference_mode:
+        # uw-slam's active pipeline (src/System.cpp:193-223, src/Tracker.cpp:
+        # 632-872): features -> <= 200 matched keypoints -> patch points, 10
+        # GN iterations at level 0 only, identity weights (its Tukey is off,
+        # src/Tracker.cpp:769), constant depth, no BA, no failure detection.
+        config = replace(
+            config,
+            tracker=replace(
+                config.tracker, track_levels=(0,), max_iterations=10,
+                weight_kind=WeightKind.NONE, affine_brightness=False, depth_bootstrap=False,
+            ),
+            use_features=True, use_ba=False, use_reloc=False,
+        )
     try:
         system = SlamSystem(calib, config, device=device)
     except NotImplementedError as exc:
@@ -313,6 +353,10 @@ def main(argv=None) -> int:
         nw = n - warmup
         print(f"steady state: {nw} frames in {dtw:.2f}s ({nw / dtw:.1f} fps warm, "
               f"first {warmup} frames excluded)", file=sys.stderr)
+    if system.ba_stats["runs"]:
+        bs = system.ba_stats
+        print(f"window BA: {bs['iters']} LM iters over {bs['runs']} runs, "
+              f"{bs['time']:.2f}s of host time", file=sys.stderr)
     if args.profile:
         print(system.timers.report(), file=sys.stderr)
     ts, poses = system.export_trajectory(args.trajectory_out)

@@ -11,8 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ba.schur import BAProblem
 from .camera.model import PinholeCamera
+from .features.detect import Keypoints
 from .image.pyramid import FramePyramid
+from .tracking.depth_prior import DepthPrior
 from .tracking.points import TrackPoints
 from .utils.synthetic import Texture
 
@@ -78,3 +81,35 @@ def texture_from_numpy(freqs, phases, amps) -> Texture:
         phases=np.asarray(phases, np.float32),
         amps=np.asarray(amps, np.float32),
     )
+
+
+def ba_problem_from_numpy(problem, device) -> BAProblem:
+    """From an object with the fields of `uwslam_tpu.ba.BAProblem`; the index
+    fields become int64 (what tensor indexing takes)."""
+    return BAProblem(
+        T_cw=_tensor(problem.T_cw, device),
+        points=_tensor(problem.points, device),
+        obs_kf=_tensor(problem.obs_kf, device, dtype=np.int64),
+        obs_lm=_tensor(problem.obs_lm, device, dtype=np.int64),
+        obs_uv=_tensor(problem.obs_uv, device),
+        obs_valid=_tensor(problem.obs_valid, device, dtype=bool),
+    )
+
+
+def depth_prior_from_numpy(prior, device) -> DepthPrior:
+    """From an object with the fields of
+    `uwslam_tpu.tracking.depth_prior.DepthPrior` (inv_depth, weight, block)."""
+    return DepthPrior(
+        inv_depth=_tensor(prior.inv_depth, device),
+        weight=_tensor(prior.weight, device),
+        block=int(prior.block),
+    )
+
+
+def keypoints_from_numpy(kps, device) -> Keypoints:
+    """From an object with the fields of `uwslam_tpu.features.Keypoints`."""
+    return Keypoints(**{
+        f: _tensor(getattr(kps, f), device,
+                   dtype={"valid": bool, "level": np.int32}.get(f, np.float32))
+        for f in Keypoints._fields
+    })

@@ -1,4 +1,5 @@
-"""Keyframe window and landmark table."""
+"""Keyframe window, landmark table and the feature-track graph."""
 from .keyframes import Keyframe, KeyframeDecision, KeyframeStore, MapPoints
+from .tracks import Track, TrackGraph
 
-__all__ = ["Keyframe", "KeyframeDecision", "KeyframeStore", "MapPoints"]
+__all__ = ["Keyframe", "KeyframeDecision", "KeyframeStore", "MapPoints", "Track", "TrackGraph"]

@@ -29,11 +29,12 @@ WARMUP_CALLS = 3
 
 
 def tree_map(fn, x):
-    """`fn` on every tensor of a nest of tuples and named tuples; None stays."""
-    if x is None:
-        return None
+    """`fn` on every tensor of a nest of tuples and named tuples; whatever is
+    neither (None, a named tuple's int field) stays."""
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if not isinstance(x, tuple):
+        return x
     items = [tree_map(fn, v) for v in x]
     return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
 

@@ -1,23 +1,29 @@
-"""SlamSystem: the live per-frame pipeline of the direct-tracking system.
+"""SlamSystem: the live per-frame pipeline.
 
-Counterpart of `uwslam_tpu.system.SlamSystem` with the switches of the
-direct-tracking configurations (README configs 1 and 3): monocular or RGB-D
-frames, rectified when the calibration has lens distortion (else cropped to
-a multiple of 2^(levels-1)), photometric tracking (FC by default) with a
-constant-velocity prior on semi-dense or dense points, keyframes, and
-failure detection with relocalization (feature detection on every
-keyframe, descriptor matching and PnP-RANSAC for a lost frame). The other
-switches of `SlamConfig` (feature front end, depth bootstrap, bundle
-adjustment, loop closure) raise NotImplementedError naming the ROADMAP item
-that will port them.
+Counterpart of `uwslam_tpu.system.SlamSystem` for README configs 1 to 4:
+monocular or RGB-D frames, rectified when the calibration has lens
+distortion (else cropped to a multiple of 2^(levels-1)), photometric
+tracking (FC by default) with a constant-velocity prior on semi-dense or
+dense points, keyframes, and failure detection with relocalization
+(descriptor matching and PnP-RANSAC for a lost frame); with `use_features`
+the feature front end (detection, description, matching, F-RANSAC) on
+every frame, tracking either on patch points around the matched keypoints
+(uw-slam's active pipeline) or, with `tracker.depth_bootstrap`, on the
+top-K selection at depths read from a coarse inverse-depth prior that is
+bootstrapped from an essential matrix and refreshed every frame; with
+`use_ba` reprojection bundle adjustment over the keyframe window,
+dispatched at a keyframe and retired a few frames later. Photometric
+window BA, loop closure and global BA raise NotImplementedError naming the
+ROADMAP item that will port them.
 
 Two entry points run the same stages. `process_frame` is synchronous: ingest
 (upload, rectify, crop, pyramid with kernel K1), tracking (kernels K3 and
 K2), point selection (K3 on a depth image) and, on keyframes, feature
 detection and description (K3); the host reads one packed diagnostics
 vector per frame (42 floats). `process_frame_async` is the pipelined loop:
-the whole steady-state frame is one function (`_build_step_plain`), on a
-CUDA device captured once into a CUDA graph and replayed per frame; its
+the whole steady-state frame is one function (`_build_step_plain`, or
+`_build_step_boot` once the depth prior is installed), on a CUDA device
+captured once into a CUDA graph and replayed per frame; its
 26-float diagnostics are read back four frames at a time through pinned
 memory, one call after they were staged, so a frame's state (and the
 keyframe it may become) lands 5 to 9 frames after its dispatch. Call
@@ -25,6 +31,8 @@ keyframe it may become) lands 5 to 9 frames after its dispatch. Call
 """
 from __future__ import annotations
 
+import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,20 +47,39 @@ from .camera.model import (
     undistort_map,
 )
 from .config import SlamConfig, unported
+from .ba.schur import BAProblem, bundle_adjust
 from .features import (
     describe,
     detect_multiscale,
+    draw_uniforms,
+    essential_ransac,
+    fundamental_ransac,
     match_descriptors,
     pnp_from_pixels,
+    projection_matrix,
+    recover_pose,
     sample_hypotheses,
 )
 from .image.pyramid import FramePyramid, build_pyramid
 from .io.trajectory import write_trajectory_tum
 from .lie import se3
 from .map.keyframes import Keyframe, KeyframeDecision, KeyframeStore
+from .map.tracks import TrackGraph
 from .ops.graph import CapturedStep, tree_clone
+from .tracking.depth_prior import (
+    DepthPrior,
+    fill_prior,
+    gauge_ratio,
+    prior_from_points,
+    propagate_prior,
+    sample_prior,
+    sample_prior_checked,
+    triangulate_matches,
+)
+from .tracking.depth_refine import refine_inverse_depth, transfer_depths
 from .tracking.photometric import track
-from .tracking.points import _depth_at, dense_points, topk_gradient_points
+from .tracking.points import _depth_at, dense_points, patch_points, topk_gradient_points
+from .tracking.robust import masked_median
 from .utils.profiling import StageTimer
 
 PNP_HYPOTHESES = 128
@@ -77,17 +104,82 @@ class FrameState:
 
 def _refuse_unported(config: SlamConfig) -> None:
     checks = (
-        (config.use_features, "use_features (the feature front-end, config 2)",
-         "slice 4, item 14"),
-        (config.tracker.depth_bootstrap, "tracker.depth_bootstrap (the depth prior)",
-         "slice 3, item 11"),
-        (config.use_ba, "use_ba (window bundle adjustment)", "slice 6, item 16"),
+        (config.use_ba and config.ba.photometric,
+         "ba.photometric (photometric window bundle adjustment)", "slice 6, item 16"),
         (config.use_loop_closure, "use_loop_closure", "slice 7, item 17"),
         (config.global_ba, "global_ba (global distributed BA)", "slice 7, item 17"),
     )
     for is_set, what, item in checks:
         if is_set:
             raise unported(what, item)
+
+
+def _gated(grid: DepthPrior, support: torch.Tensor, min_support: int) -> DepthPrior:
+    """The grid, emptied on the device where its support count is too thin
+    (no host read per source)."""
+    keep = support >= min_support
+    return grid._replace(weight=torch.where(keep, grid.weight, 0.0),
+                         inv_depth=torch.where(keep, grid.inv_depth, 0.0))
+
+
+def _fuse_grids(grids, block: int):
+    """Support-weighted mean of inverse-depth grids -> (DepthPrior, weights)."""
+    wsum = sum(g.weight for g in grids)
+    inv = torch.where(
+        wsum > 0,
+        sum(g.inv_depth * g.weight for g in grids) / torch.clamp(wsum, min=1e-6),
+        0.0,
+    )
+    return DepthPrior(inv_depth=inv, weight=wsum, block=block), wsum
+
+
+def _keypoint_depths(cap: int, idx_b, depth, good) -> torch.Tensor:
+    """(cap,) table of triangulated depth per current keypoint slot, 0 where
+    there is none (consumers read depth <= 1e-6 as "no depth"). Several
+    rows of the match table may name one slot, at most one of them a good
+    (mutual) match: the maximum keeps that one's depth whatever the order
+    of the writes."""
+    table = torch.zeros(cap, dtype=torch.float32, device=depth.device)
+    return table.scatter_reduce(0, idx_b, torch.where(good, depth, 0.0), reduce="amax")
+
+
+def _fused_prior_update(prior, T_rel, ab, prev_pts, img0, gx0, gy0,
+                        uv_a, uv_b, good, idx_b, *, cam, blk, cap):
+    """Steady-state refresh of the depth prior onto the current frame, with
+    nothing read on the host (the synchronous path calls it as it is, the
+    bootstrap megastep holds it in its graph): photometric refinement of
+    the tracked points' depths (kernel K3, 5 launches) and their transfer,
+    triangulation of the matches, each grid anchored to the gauge of the
+    propagated prior and gated on its support, fusion, and the table of
+    depths per keypoint. The sources 1 to 3 of `SlamSystem._update_prior`;
+    its wide-baseline anchor lives only in the first frames and stays
+    there."""
+    H, W = cam.height, cam.width
+    prop = propagate_prior(prior, T_rel, cam)
+
+    # Uniform votes and an uncompensated residual: slope^2 weights amplify
+    # the bias of occlusion-edge points, where photometric depth is biased
+    # toward the near surface (the JAX package's measurement).
+    ref = refine_inverse_depth(prev_pts, T_rel, img0, gx0, gy0, cam, ab=ab)
+    uv_t, z_t, ok = transfer_depths(prev_pts, ref.inv_depth, ref.good, T_rel, cam)
+    g1 = prior_from_points(uv_t[0], z_t[0], ok[0], H, W, block=blk)
+    g1 = g1._replace(inv_depth=g1.inv_depth / gauge_ratio(g1, prop))
+    g1 = _gated(g1, ref.good.sum(), 50)
+
+    tri = triangulate_matches(cam, T_rel, uv_a, uv_b, good)
+    n_tri = tri.good.sum()
+    g2 = prior_from_points(uv_b, tri.depth_b, tri.good, H, W, block=blk)
+    s2 = gauge_ratio(g2, prop)
+    g2 = g2._replace(inv_depth=g2.inv_depth / s2)
+    g2 = _gated(g2, n_tri, 20)
+    kp_depth = _keypoint_depths(cap, idx_b, tri.depth_b * s2, tri.good & (n_tri >= 20))
+
+    fused, _ = _fuse_grids([g1, g2, prop], blk)
+    # Anchor the fused grid to the propagated one once more: each median
+    # ratio above leaks a few percent of gauge noise per frame, which would
+    # compound into a random walk of the monocular scale.
+    fused = fused._replace(inv_depth=fused.inv_depth / gauge_ratio(fused, prop))
+    return fill_prior(fused), kp_depth
 
 
 class SlamSystem:
@@ -153,6 +245,21 @@ class SlamSystem:
             ),
         )
         self._prev = None        # (pyramid, points, depth) of the previous frame
+        self._prev_feats = None     # (Keypoints, descriptors) under use_features
+        self._depth_prior = None    # coarse inverse-depth grid (mono bootstrap)
+        self._boot_anchor = None    # (feats, T_wc, frames left): the first
+        #                             frame, for wide-baseline triangulation
+        #                             during the init window
+        self._last_matches = None   # (uv_a, uv_b, good, idx_a, idx_b) of the last pair
+        self._kp_depth = None       # triangulated depth per keypoint slot
+        self._desc_proj = None      # descriptor projection on the device
+        self._tracks = TrackGraph() # feature tracks across keyframes (BA)
+        self._kf_since_ba = 0
+        # Window BA: LM iterations, the host's time (dispatch and any wait)
+        # and the solves retired.
+        self.ba_stats = {"iters": 0, "time": 0.0, "runs": 0}
+        self._ba_inflight = None    # a dispatched solve: packed result, event
+        self._ba_stream = None      # the side stream the solves run on
         self._kf_poses: dict[int, np.ndarray] = {}   # keyframe poses, host copies
         self._eye = torch.eye(4, dtype=torch.float32, device=self.device)
         self._T_wc = self._eye           # world <- current camera
@@ -234,6 +341,8 @@ class SlamSystem:
         if cfg.point_mode == "dense":
             return dense_points(pyr.images[0], self.cam, depth_image=depth,
                                 mono_z=cfg.mono_depth, stride=cfg.dense_stride)
+        if depth_image is None and self._depth_prior is not None:
+            return self._select_boot(pyr)
         return topk_gradient_points(
             pyr.images[0], pyr.grad_mag[0], self.cam, depth_image=depth,
             num_points=cfg.num_points, mono_z=cfg.mono_depth, block=cfg.point_block,
@@ -243,24 +352,279 @@ class SlamSystem:
         """Multi-scale corners and their descriptors (K3 per level)."""
         fcfg = self.config.features
         n_lvls = min(fcfg.detect_levels, self.config.tracker.pyramid_levels)
+        if self._desc_proj is None:
+            # Uploaded once: a captured step may not copy from the host.
+            self._desc_proj = projection_matrix(self.device)
         kps = detect_multiscale(
             [g[0] for g in pyr.grad_x], [g[0] for g in pyr.grad_y],
             per_level=fcfg.per_level, levels=n_lvls,
         )
-        desc = describe([im[0] for im in pyr.images], kps.uv, kps.level, kps.valid)
+        desc = describe([im[0] for im in pyr.images], kps.uv, kps.level, kps.valid,
+                        proj=self._desc_proj)
         return kps, desc
 
+    # ------------------------------------------------ the feature front end
+
+    def _ransac_uniforms(self, num_matches: int, seed: int) -> torch.Tensor:
+        """The frame's (hypotheses, matches) table of uniforms behind the
+        RANSAC samples, drawn on the host from a generator seeded with the
+        frame id and uploaded (through pinned memory on a CUDA device)."""
+        gen = torch.Generator().manual_seed(seed)
+        u = draw_uniforms(num_matches, self.config.features.ransac_hypotheses, gen)
+        if self.device.type == "cuda":
+            return u.pin_memory().to(self.device, non_blocking=True)
+        return u
+
+    def _match_features(self, kp_a_uv, desc_a, valid_a, kp_b_uv, desc_b, valid_b, uniforms):
+        """Ratio-tested mutual matches of two keypoint sets, verified by
+        F-RANSAC -> (uv_a, uv_b, good, idx_a, idx_b), all of capacity K_a.
+        Nothing is read on the host."""
+        fcfg = self.config.features
+        m = match_descriptors(desc_a, desc_b, valid_a, valid_b, ratio=fcfg.ratio)
+        uv_a, uv_b = kp_a_uv[m.idx_a], kp_b_uv[m.idx_b]
+        res = fundamental_ransac(uv_a, uv_b, m.valid, uniforms,
+                                 threshold=fcfg.ransac_threshold_px,
+                                 min_inliers=fcfg.min_matches)
+        return uv_a, uv_b, m.valid & res.inliers, m.idx_a, m.idx_b
+
+    def _match_only(self, prev, cur):
+        """Previous -> current matches without patch points: under the depth
+        bootstrap the tracker runs on the top-K selection and the matches
+        serve triangulation and the table of depths per keypoint."""
+        (kp_a, desc_a), (kp_b, desc_b) = prev, cur
+        return self._match_features(
+            kp_a.uv, desc_a, kp_a.valid, kp_b.uv, desc_b, kp_b.valid,
+            self._ransac_uniforms(desc_a.shape[0], self._frame_id),
+        )
+
+    def _feature_points(self, prev, cur, depth_image):
+        """Match previous -> current features and build patch points around
+        the matched PREVIOUS keypoints: uw-slam's active pipeline
+        (DetectAndTrackFeatures -> ObtainPatchesPoints, src/System.cpp:211-213)
+        -> (TrackPoints, number of matches on the device)."""
+        fcfg = self.config.features
+        matches = self._match_only(prev, cur)
+        uv_a, _, good, idx_a, _ = matches
+        self._last_matches = matches
+        pts = patch_points(
+            self._prev[0].images[0], uv_a[None], good[None], self.cam,
+            depth_image=None if depth_image is None else depth_image[None],
+            mono_z=self.config.tracker.mono_depth,
+            patch_size=fcfg.patch_size, max_keypoints=fcfg.max_keypoints,
+        )
+        if depth_image is None:
+            # The triangulated depth of the keypoint itself (a patch lies on
+            # its keypoint's surface) beats the coarse grid, which covers
+            # the keypoints without one.
+            pts = self._apply_prior(pts)
+            if self._kp_depth is not None:
+                P = fcfg.patch_size * fcfg.patch_size
+                K = min(uv_a.shape[0], fcfg.max_keypoints)
+                d_pts = self._kp_depth[idx_a][:K].repeat_interleave(P)[None]   # (1, K*P)
+                z = torch.where(d_pts > 1e-6, d_pts, pts.p3d[..., 2])
+                pts = pts._replace(p3d=self.cam.unproject(pts.uv, z))
+        return pts, good.sum()
+
+    # --------------------------------------------------- the depth bootstrap
+
+    def _bootstrap_enabled(self, depth_dev) -> bool:
+        return (self.config.tracker.depth_bootstrap and self.config.use_features
+                and depth_dev is None)
+
+    def _prior_depths(self, prior: DepthPrior, pts):
+        """Points with their depths read from the prior; with
+        `bootstrap_edge_ratio`, a point whose read straddles a depth edge is
+        dropped."""
+        cfg = self.config.tracker
+        if cfg.bootstrap_edge_ratio > 0:
+            depth, ok = sample_prior_checked(
+                prior, pts.uv, cfg.mono_depth,
+                max_edge_ratio=cfg.bootstrap_edge_ratio, shrink=cfg.bootstrap_shrink,
+            )
+            return pts._replace(p3d=self.cam.unproject(pts.uv, depth), valid=pts.valid & ok)
+        depth = sample_prior(prior, pts.uv, cfg.mono_depth, shrink=cfg.bootstrap_shrink)
+        return pts._replace(p3d=self.cam.unproject(pts.uv, depth))
+
+    def _apply_prior(self, pts):
+        """Replace constant-z depths by the bootstrapped prior's, if there is one."""
+        return pts if self._depth_prior is None else self._prior_depths(self._depth_prior, pts)
+
+    def _select_boot(self, pyr):
+        """The top-K selection at the prior's depths."""
+        cfg = self.config.tracker
+        pts = topk_gradient_points(
+            pyr.images[0], pyr.grad_mag[0], self.cam, num_points=cfg.num_points,
+            mono_z=cfg.mono_depth, block=cfg.point_block,
+        )
+        return self._prior_depths(self._depth_prior, pts)
+
+    def _bootstrap_init(self, matches):
+        """Monocular initialization from the first pair: essential-matrix
+        RANSAC on the matches gives the direction of the relative pose and
+        triangulated structure; the scale is fixed so that the median depth
+        equals `mono_depth` (the free monocular gauge). -> (T_init cur <-
+        prev, the prior on prev) or None. The classic two-view bootstrap in
+        place of uw-slam's z = 1 (its prototype: src/feature_detector.cpp:262-281)."""
+        uv_a, uv_b, good = matches[:3]
+        if int(good.sum()) < 30:
+            return None
+        ones = torch.ones(uv_a.shape[0], dtype=torch.float32, device=self.device)
+        xy_a = self.cam.unproject(uv_a, ones)[:, :2]
+        xy_b = self.cam.unproject(uv_b, ones)[:, :2]
+        res = essential_ransac(
+            xy_a, xy_b, good, self._ransac_uniforms(uv_a.shape[0], self._frame_id),
+            threshold_norm=2.0 / float(self.cam.fx),
+        )
+        rec = recover_pose(res.F, xy_a, xy_b, good & res.inliers)
+        z = rec.points[:, 2]
+        med = torch.nanmedian(torch.where(rec.cheirality, z, torch.nan))
+        ok, num_good, num_inliers, med = torch.stack(
+            [res.ok.float(), rec.num_good.float(), res.num_inliers.float(), med]
+        ).cpu().tolist()
+        # Cheirality consensus: a sound E puts nearly every inlier in front
+        # of both cameras; a degenerate one splits the vote.
+        if not ok or num_good < 20 or num_good < 0.7 * num_inliers:
+            return None
+        if not math.isfinite(med) or med <= 1e-6:
+            return None
+        scale = self.config.tracker.mono_depth / med
+        T_init = rec.T.clone()
+        T_init[:3, 3] *= scale
+        prior = fill_prior(prior_from_points(
+            uv_a, z * scale, rec.cheirality, self.cam.height, self.cam.width,
+            block=self.config.tracker.bootstrap_block,
+        ))
+        return T_init, prior
+
+    def _update_prior(self, T_rel, prev_pts, cur_pyr, cur_feats=None, ab=None):
+        """Refresh the inverse-depth prior onto the CURRENT frame, in the
+        bootstrap window and after a recovery. Depth sources, fused in
+        inverse depth by their support: (1) photometric refinement of the
+        tracked points' depths at the fixed tracked pose (the dense source);
+        (2) triangulated feature matches; (2b) while the anchor lives, the
+        first frame's features matched against the current ones and
+        triangulated over the composed, wide baseline (two-view depth noise
+        falls as 1 / baseline); (3) the previous prior warped forward, which
+        is also the gauge every measurement grid is rescaled to, so that the
+        monocular scale is fixed once at the bootstrap."""
+        blk = self.config.tracker.bootstrap_block
+        H, W = self.cam.height, self.cam.width
+        prop = (propagate_prior(self._depth_prior, T_rel, self.cam)
+                if self._depth_prior is not None else None)
+        grids = []
+
+        def anchored(grid):
+            if prop is None:
+                return grid, 1.0
+            s = gauge_ratio(grid, prop)
+            return grid._replace(inv_depth=grid.inv_depth / s), s
+
+        ref = refine_inverse_depth(
+            prev_pts, T_rel, cur_pyr.images[0], cur_pyr.grad_x[0], cur_pyr.grad_y[0],
+            self.cam, ab=ab,
+        )
+        uv_t, z_t, ok = transfer_depths(prev_pts, ref.inv_depth, ref.good, T_rel, self.cam)
+        g, _ = anchored(prior_from_points(uv_t[0], z_t[0], ok[0], H, W, block=blk))
+        grids.append(_gated(g, ref.good.sum(), 50))
+
+        self._kp_depth = None
+        if self._last_matches is not None:
+            uv_a, uv_b, good, _, idx_b = self._last_matches
+            tri = triangulate_matches(self.cam, T_rel, uv_a, uv_b, good)
+            n_tri = tri.good.sum()
+            g, s_tri = anchored(prior_from_points(uv_b, tri.depth_b, tri.good, H, W, block=blk))
+            grids.append(_gated(g, n_tri, 20))
+            fcfg = self.config.features
+            self._kp_depth = _keypoint_depths(
+                fcfg.per_level * fcfg.detect_levels, idx_b, tri.depth_b * s_tri,
+                tri.good & (n_tri >= 20),
+            )
+
+        if self._boot_anchor is not None and cur_feats is not None:
+            (kp_a, desc_a), T_wc_a, frames_left = self._boot_anchor
+            kp_b, desc_b = cur_feats
+            m = match_descriptors(desc_a, desc_b, kp_a.valid, kp_b.valid,
+                                  ratio=self.config.features.ratio)
+            # One host read per frame while the anchor lives.
+            n_anchor = int(m.valid.sum())
+            if n_anchor >= 30:
+                T_rel0 = se3.compose(se3.inverse(self._T_wc), T_wc_a)
+                uv_b0 = kp_b.uv[m.idx_b]
+                tri0 = triangulate_matches(self.cam, T_rel0, kp_a.uv[m.idx_a], uv_b0, m.valid)
+                g = prior_from_points(uv_b0, tri0.depth_b, tri0.good, H, W, block=blk)
+                # The most accurate source while it lasts: three votes.
+                g, _ = anchored(g._replace(weight=g.weight * 3.0))
+                grids.append(_gated(g, tri0.good.sum(), 20))
+            frames_left -= 1
+            self._boot_anchor = (
+                None if frames_left <= 0 or n_anchor < 30
+                else ((kp_a, desc_a), T_wc_a, frames_left)
+            )
+
+        if prop is not None:
+            grids.append(prop)
+        fused, wsum = _fuse_grids(grids, blk)
+        if prop is not None:
+            fused = fused._replace(inv_depth=fused.inv_depth / gauge_ratio(fused, prop))
+        fused = fill_prior(fused)
+        # Before the bootstrap: install only once a source has fired (one
+        # scalar read, paid until the prior exists).
+        if self._depth_prior is None and float(wsum.sum()) <= 0.0:
+            return
+        self._depth_prior = fused
+
+    def _prior_core(self, T_rel, ab, prev_pts, cur_pyr, matches):
+        """The steady-state refresh (`_fused_prior_update`) -> (prior, depths
+        per keypoint)."""
+        fcfg = self.config.features
+        uv_a, uv_b, good, _, idx_b = matches
+        return _fused_prior_update(
+            self._depth_prior, T_rel, ab, prev_pts,
+            cur_pyr.images[0], cur_pyr.grad_x[0], cur_pyr.grad_y[0],
+            uv_a, uv_b, good, idx_b,
+            cam=self.cam, blk=self.config.tracker.bootstrap_block,
+            cap=fcfg.per_level * fcfg.detect_levels,
+        )
+
+    def _refine_selected(self, pts, T_rel, prev_pyr):
+        """Refine freshly selected points' inverse depths photometrically
+        against the previous frame (pose prev <- cur known from tracking).
+        The refined depths are anchored to the prior's gauge (the median
+        ratio against the prior-sampled depths pinned to 1), or they would
+        walk the monocular scale; a point that fails the refinement's gates
+        keeps its prior-sampled depth."""
+        ref = refine_inverse_depth(
+            pts, se3.inverse(T_rel), prev_pyr.images[0], prev_pyr.grad_x[0],
+            prev_pyr.grad_y[0], self.cam,
+        )
+        z_prior = pts.p3d[..., 2]
+        rho_prior = 1.0 / torch.clamp(z_prior, min=1e-6)
+        s = masked_median(ref.inv_depth / torch.clamp(rho_prior, min=1e-6), ref.good)
+        s = torch.where((ref.good.sum(-1) >= 32) & (s > 1e-3), s, 1.0)
+        z = torch.where(ref.good, s[..., None] / torch.clamp(ref.inv_depth, min=1e-6), z_prior)
+        return pts._replace(p3d=self.cam.unproject(pts.uv, z))
+
     def _make_keyframe(self, ts, pyr, pts, cur_feats, depth_dev=None) -> Keyframe:
-        """A keyframe; with relocalization on, it carries feature keypoints
-        and their camera-frame 3D points (from the depth image, else the
-        monocular depth) for PnP. Keypoints over depth holes or edges are
-        masked out: they would carry the fallback depth."""
+        """A keyframe; with relocalization or the feature front end on, it
+        carries feature keypoints and their camera-frame 3D points for PnP:
+        from the depth image, else the depth prior, else the monocular
+        depth, and where a keypoint has a triangulated depth of its own
+        (`_kp_depth`), that one (the coarse grid quantizes depth across
+        cells). Keypoints over depth holes or edges are masked out: they
+        would carry the fallback depth."""
         kf = Keyframe(self._frame_id, ts, self._T_wc, pyr, pts)
         if cur_feats is None and self.config.use_reloc:
             cur_feats = self._detect_features(pyr)
         if cur_feats is not None:
             kps, desc = cur_feats
-            depth, depth_ok = _depth_at(depth_dev, kps.uv, self.config.tracker.mono_depth)
+            tcfg = self.config.tracker
+            depth, depth_ok = _depth_at(depth_dev, kps.uv, tcfg.mono_depth)
+            if depth_dev is None and self._depth_prior is not None:
+                depth = sample_prior(self._depth_prior, kps.uv, tcfg.mono_depth,
+                                     shrink=tcfg.bootstrap_shrink)
+            if depth_dev is None and self._kp_depth is not None:
+                d_kp = self._kp_depth[: kps.uv.shape[0]]
+                depth = torch.where(d_kp > 1e-6, d_kp, depth)
             kf = kf._replace(
                 kp_uv=kps.uv, kp_desc=desc, kp_valid=kps.valid & depth_ok,
                 kp_p3d=self.cam.unproject(kps.uv, depth),
@@ -270,15 +634,17 @@ class SlamSystem:
     def _on_new_keyframe(self, kf) -> None:
         """Keyframe hook of loop closure and global BA; `__init__` refuses
         both, so nothing happens. A pose correction they compute goes
-        through `_apply_live_correction`."""
+        through `_apply_live_correction`, as window BA's does."""
 
-    def _relocalize(self, pyr):
+    def _relocalize(self, pyr, cur_feats=None):
         """PnP against the newest keyframes, newest first. Returns
-        (T_wc, kf_id, features) on success, else None; the detected
-        features come back so a new keyframe can reuse them. Minimal
-        samples come from a generator seeded with the frame id."""
+        (T_wc, kf_id, features) on success, else None; the features
+        (detected here unless the front end already has them) come back so
+        a new keyframe can reuse them. Minimal samples come from a
+        generator seeded with the frame id."""
         rcfg = self.config.reloc
-        cur_feats = self._detect_features(pyr)
+        if cur_feats is None:
+            cur_feats = self._detect_features(pyr)
         kps, desc = cur_feats
         for kf in reversed(self.keyframes.keyframes[-rcfg.max_candidates:]):
             if kf.kp_desc is None or kf.kp_p3d is None:
@@ -309,10 +675,12 @@ class SlamSystem:
         with self.timers.stage("ingest"):
             pyr = self._ingest_pyramid(image)
         depth_dev = None if depth is None else self._ingest_depth(depth)
+        with self.timers.stage("features"):
+            cur_feats = self._detect_features(pyr) if self.config.use_features else None
 
         if self._prev is None:
             pts = self._select_points(pyr, depth_dev)
-            kf = self._make_keyframe(ts, pyr, pts, None, depth_dev)
+            kf = self._make_keyframe(ts, pyr, pts, cur_feats, depth_dev)
             self.keyframes.insert(kf)
             T_wc_host = self._T_wc.cpu().numpy()
             self._kf_poses[kf.frame_id] = T_wc_host
@@ -324,10 +692,17 @@ class SlamSystem:
                 T_kf_frame=np.eye(4, dtype=np.float32),
             )
             self._prev = (pyr, pts, depth_dev)
+            self._prev_feats = cur_feats
+            if self.config.use_ba and self.device.type == "cuda" and self._ba_stream is None:
+                self._warm_window_ba()
+            if self._bootstrap_enabled(depth_dev) and cur_feats is not None:
+                self._boot_anchor = (cur_feats, self._T_wc,
+                                     self.config.tracker.bootstrap_anchor_frames)
         else:
-            state = self._track_frame(pyr, ts, depth_dev)
+            state = self._track_frame(pyr, ts, depth_dev, cur_feats)
         self.trajectory.append(state)
         self._frame_id += 1
+        self._retire_window_ba()   # nothing happens until a dispatched solve is ready
         return state
 
     def _is_lost(self, inliers, capacity, track_error, pose_finite, T_wc_np) -> bool:
@@ -345,11 +720,33 @@ class SlamSystem:
             or not np.isfinite(T_wc_np).all()
         )
 
-    def _track_frame(self, pyr, ts: float, depth_dev) -> FrameState:
-        prev_pyr, prev_pts, _ = self._prev
+    def _track_frame(self, pyr, ts: float, depth_dev, cur_feats=None) -> FrameState:
+        cfg = self.config
+        prev_pyr, prev_pts, prev_depth = self._prev
+        self._last_matches = None
+        if cfg.use_features and self._prev_feats is not None:
+            if self._bootstrap_enabled(prev_depth):
+                # Under the depth bootstrap the tracker runs on the spread
+                # top-K selection: patch points sit on corners, the very
+                # occlusion boundaries where depth is bimodal. The features
+                # serve matching and triangulation only.
+                self._last_matches = self._match_only(self._prev_feats, cur_feats)
+            else:
+                feat_pts, n_matches = self._feature_points(
+                    self._prev_feats, cur_feats, prev_depth
+                )
+                if int(n_matches) >= cfg.features.min_matches:
+                    prev_pts = feat_pts
+        T_init = self._velocity      # constant velocity: T_cur<-prev ~ the last motion
+        if (self._bootstrap_enabled(prev_depth) and self._depth_prior is None
+                and self._last_matches is not None):
+            boot = self._bootstrap_init(self._last_matches)
+            if boot is not None:
+                T_init, self._depth_prior = boot
+                prev_pts = self._apply_prior(prev_pts)
         with self.timers.stage("track"):
             T_rel, T_wc_new, diag = self._track_and_diag(
-                prev_pyr, pyr, prev_pts, self._velocity, self.keyframes.latest.T_wc,
+                prev_pyr, pyr, prev_pts, T_init, self.keyframes.latest.T_wc,
             )
             diag = diag.cpu().numpy()              # the frame's one transfer
         inliers = int(diag[0])
@@ -361,10 +758,11 @@ class SlamSystem:
         rel_kf_log = diag[36:42]
         ratio = inliers / max(capacity, 1)
         status = "ok"
-        cur_feats = None
         if self._is_lost(inliers, capacity, track_error, pose_finite, T_wc_np):
+            # A pose jump breaks the prior's association with its frame.
+            self._depth_prior = self._kp_depth = self._boot_anchor = None
             with self.timers.stage("reloc"):
-                reloc = self._relocalize(pyr)
+                reloc = self._relocalize(pyr, cur_feats)
             if reloc is not None:
                 self._T_wc, _, cur_feats = reloc
                 self._velocity = self._eye
@@ -377,8 +775,25 @@ class SlamSystem:
         else:
             self._velocity = T_rel
             self._T_wc = T_wc_new
+            if self._bootstrap_enabled(depth_dev):
+                if (self._depth_prior is not None and self._boot_anchor is None
+                        and self._last_matches is not None):
+                    # Steady state: nothing read on the host.
+                    self._depth_prior, self._kp_depth = self._prior_core(
+                        T_rel, None, prev_pts, pyr, self._last_matches
+                    )
+                else:
+                    # Bootstrap window or recovery: all sources, the
+                    # wide-baseline anchor and the install gate.
+                    self._update_prior(T_rel, prev_pts, pyr, cur_feats)
         with self.timers.stage("select"):
             pts = self._select_points(pyr, depth_dev)
+            if (status == "ok" and cfg.tracker.bootstrap_refine_points
+                    and self._bootstrap_enabled(depth_dev) and self._depth_prior is not None):
+                # The coarse grid quantizes depth across the discontinuities
+                # that high-gradient points sit on; one refinement pass
+                # against the previous frame gives each point its own depth.
+                pts = self._refine_selected(pts, T_rel, prev_pyr)
         is_kf = status != "lost" and (
             status == "relocalized"
             or self.keyframes.should_insert(self._frame_id, self._T_wc, ratio,
@@ -387,21 +802,27 @@ class SlamSystem:
         if is_kf:
             with self.timers.stage("keyframe"):
                 kf = self._make_keyframe(ts, pyr, pts, cur_feats, depth_dev)
+                prev_kf = self.keyframes.latest
                 self.keyframes.insert(kf)
+                self._kf_poses[kf.frame_id] = (
+                    T_wc_np if status == "ok" else self._T_wc.cpu().numpy()
+                )
                 self._on_new_keyframe(kf)
+            with self.timers.stage("ba"):
+                self._window_ba_on_keyframe(prev_kf, kf)
         ref_kf = self.keyframes.latest
         if status == "ok" and not is_kf:
             T_wc_host, T_kf_frame = T_wc_np, T_kf_frame_np
         else:
-            # The pose moved (lost, relocalized) or a keyframe was made: read
-            # the live pose and the pose relative to the keyframe together.
+            # The pose moved (lost, relocalized) or a keyframe was made (and
+            # a window solve may have corrected the live pose): read the
+            # live pose and the pose relative to the keyframe together.
             both = torch.stack([
                 self._T_wc, se3.compose(se3.inverse(ref_kf.T_wc), self._T_wc)
             ]).cpu().numpy()
             T_wc_host, T_kf_frame = both[0], both[1]
-            if is_kf:
-                self._kf_poses[ref_kf.frame_id] = T_wc_host
         self._prev = (pyr, pts, depth_dev)
+        self._prev_feats = cur_feats
         return FrameState(
             frame_id=self._frame_id, timestamp=ts, T_wc=T_wc_host,
             tracked_inliers=inliers, track_error=track_error, is_keyframe=is_kf,
@@ -414,10 +835,8 @@ class SlamSystem:
         """Register a left-multiplied pose correction for the pipelined
         chain: it reaches the device-side pose at the next dispatch, and the
         retirement of frames dispatched before it applies it to their
-        diagnostics poses on the host. A hook only, for now: window bundle
-        adjustment and loop closure are its producers and `__init__` refuses
-        both, so the pending correction stays the identity; the megastep
-        keeps its `corr` input so that its signature need not change."""
+        diagnostics poses on the host. Window bundle adjustment produces
+        such corrections (loop closure will)."""
         C = np.asarray(C, np.float32)
         self._corr_pending = C @ self._corr_pending
         self._corr_accum = C @ self._corr_accum
@@ -494,36 +913,94 @@ class SlamSystem:
 
         return step
 
-    def _run_step(self, *inputs):
-        """One megastep: eagerly on a CPU device; on a CUDA device one replay
-        of the graph captured for this frame dtype and shape at its first
-        use. The replay's outputs are cloned: the next replay overwrites the
-        graph's own, while a frame's pyramid and points live on until its
-        retirement (and as the next frame's inputs)."""
+    def _build_step_boot(self):
+        """The steady-state frame under the depth bootstrap as one function
+        of tensors: the stages of the plain step plus feature detection and
+        description (K3), previous -> current matching with F-RANSAC, the
+        fused refresh of the depth prior (K3 on the frame's texels) and the
+        next frame's points at the new prior's depths. `step(img, prev_pyr,
+        prev_pts, prev_kp_uv, prev_desc, prev_kp_valid, prior, T_init, T_wc,
+        T_ref, corr, uniforms) -> (pyr, kps, desc, T_rel, T_wc_new, prior_new,
+        kp_depth, pts, diag)`. The RANSAC samples come from `uniforms`,
+        drawn on the host per frame; nothing in the step reads the device."""
+        cam = self.cam
+        tcfg = self.config.tracker
+        fcfg = self.config.features
+        cap = fcfg.per_level * fcfg.detect_levels
+
+        def step(img, prev_pyr, prev_pts, prev_kp_uv, prev_desc, prev_kp_valid, prior,
+                 T_init, T_wc, T_ref, corr, uniforms):
+            pyr = self._ingest_pyramid(img)
+            kps, desc = self._detect_features(pyr)
+            uv_a, uv_b, good, _, idx_b = self._match_features(
+                prev_kp_uv, prev_desc, prev_kp_valid, kps.uv, desc, kps.valid, uniforms
+            )
+            out = track(
+                prev_pyr, pyr, prev_pts, cam, T_init=T_init[None],
+                levels=tcfg.track_levels, max_iters=tcfg.max_iterations,
+                weight_kind=tcfg.weight_kind, mode=tcfg.track_mode,
+                affine=tcfg.affine_brightness,
+            )
+            T_rel = out.T[0]
+            T_wc_in = se3.compose(corr, T_wc)
+            T_wc_new = se3.normalize(se3.compose(T_wc_in, se3.inverse(T_rel)))
+            diag = torch.cat([
+                torch.stack([
+                    out.inliers[0].float(), prev_pts.valid.sum().float(),
+                    out.error[0].float(), torch.isfinite(T_rel).all().float(),
+                ]),
+                T_wc_new.reshape(-1),
+                se3.log(se3.compose(se3.inverse(T_ref), T_wc_new)),
+            ])
+            prior_new, kp_depth = _fused_prior_update(
+                prior, T_rel, None, prev_pts, pyr.images[0], pyr.grad_x[0], pyr.grad_y[0],
+                uv_a, uv_b, good, idx_b, cam=cam, blk=tcfg.bootstrap_block, cap=cap,
+            )
+            pts = topk_gradient_points(
+                pyr.images[0], pyr.grad_mag[0], cam, num_points=tcfg.num_points,
+                mono_z=tcfg.mono_depth, block=tcfg.point_block,
+            )
+            pts = self._prior_depths(prior_new, pts)
+            return pyr, kps, desc, T_rel, T_wc_new, prior_new, kp_depth, pts, diag
+
+        return step
+
+    def _run_step(self, kind: str, *inputs):
+        """One megastep (`kind` "plain" or "boot"): eagerly on a CPU device;
+        on a CUDA device one replay of the graph captured for this kind,
+        frame dtype and shape at its first use. The replay's outputs are
+        cloned: the next replay overwrites the graph's own, while a frame's
+        pyramid and points live on until its retirement (and as the next
+        frame's inputs)."""
+        build = self._build_step_boot if kind == "boot" else self._build_step_plain
         if self.device.type == "cpu":
-            return self._build_step_plain()(*inputs)
-        key = (inputs[0].dtype, tuple(inputs[0].shape))
+            return build()(*inputs)
+        key = (kind, inputs[0].dtype, tuple(inputs[0].shape))
         if key not in self._steps:
-            self._steps[key] = CapturedStep(self._build_step_plain(), inputs)
+            self._steps[key] = CapturedStep(build(), inputs)
         return tree_clone(self._steps[key](*inputs))
 
     @property
     def graph_replays(self) -> int:
         """Frames that went through a CUDA graph replay so far."""
-        return sum(step.replays for step in self._steps.values())
+        return sum(step.replays for key, step in self._steps.items() if key[0] != "ba")
 
     def _can_pipeline(self, depth) -> bool:
-        """The megastep covers steady-state plain direct tracking. The first
-        frame, a frame with a depth image, dense points, profiling (stage
-        timers need fenced stages) and the recovery from a lost frame take
-        the synchronous path; so will the feature front end until its
-        bootstrap megastep is ported."""
+        """The megastep covers the two steady states: plain direct tracking,
+        and bootstrap tracking with an installed prior. The first frame, a
+        frame with a depth image, dense points, profiling (stage timers need
+        fenced stages), the bootstrap's init window, the feature front end
+        without the bootstrap (patch points) and the recovery from a lost
+        frame take the synchronous path."""
         if depth is not None or self._prev is None or self._pipe_broken:
             return False
         cfg = self.config
         if cfg.tracker.point_mode == "dense" or cfg.profile:
             return False
-        return not cfg.use_features
+        if not cfg.use_features:
+            return True
+        return (cfg.tracker.depth_bootstrap and self._depth_prior is not None
+                and self._boot_anchor is None and not cfg.tracker.bootstrap_refine_points)
 
     def process_frame_async(self, image, depth=None,
                             timestamp: float | None = None) -> FrameState | None:
@@ -545,6 +1022,9 @@ class SlamSystem:
         try:
             self._pipe_queue.append(self._dispatch_pipelined(image, ts))
             state = self._retire_ready()
+            # A window solve that has finished lands here; one that has not
+            # is left alone: the loop never waits for it.
+            self._retire_window_ba()
             if self._pipe_ready is None and len(self._pipe_queue) > self._pipe_batch:
                 recs = self._pipe_queue[: self._pipe_batch]
                 del self._pipe_queue[: self._pipe_batch]
@@ -587,16 +1067,32 @@ class SlamSystem:
             corr = torch.from_numpy(self._corr_pending).to(self.device)
         self._corr_pending = np.eye(4, dtype=np.float32)
         prev_pyr, prev_pts, _ = self._prev
-        pyr, pts, T_rel, T_wc_new, diag = self._run_step(
-            self._to_device(image), prev_pyr, prev_pts, self._velocity, self._T_wc,
-            self.keyframes.latest.T_wc, corr,
-        )
+        T_ref = self.keyframes.latest.T_wc
+        feats = kp_depth = prior_new = None
+        if not self.config.use_features:
+            pyr, pts, T_rel, T_wc_new, diag = self._run_step(
+                "plain", self._to_device(image), prev_pyr, prev_pts, self._velocity,
+                self._T_wc, T_ref, corr,
+            )
+        else:
+            kp_prev, desc_prev = self._prev_feats
+            (pyr, kps, desc, T_rel, T_wc_new, prior_new, kp_depth, pts, diag) = self._run_step(
+                "boot", self._to_device(image), prev_pyr, prev_pts,
+                kp_prev.uv, desc_prev, kp_prev.valid, self._depth_prior,
+                self._velocity, self._T_wc, T_ref, corr,
+                self._ransac_uniforms(desc_prev.shape[0], self._frame_id),
+            )
+            feats = (kps, desc)
+            self._depth_prior = prior_new
+            self._kp_depth = kp_depth
         # Advance the device-side chain speculatively (status "ok").
         self._velocity = T_rel
         self._T_wc = T_wc_new
         self._prev = (pyr, pts, None)
+        self._prev_feats = feats
         rec = {
             "frame_id": self._frame_id, "ts": ts, "diag": diag, "pyr": pyr, "pts": pts,
+            "feats": feats, "kp_depth": kp_depth, "prior": prior_new,
             "corr_at_dispatch": self._corr_accum.copy(),
             "ref_kf_id": self.keyframes.latest.frame_id,
         }
@@ -640,8 +1136,9 @@ class SlamSystem:
             # Found late: the frames dispatched after this one ran on a
             # garbage chain. Drain them and resynchronize.
             self._pipe_broken = True
+            self._depth_prior = self._kp_depth = self._boot_anchor = None
             status = "lost"
-            reloc = self._relocalize(rec["pyr"])
+            reloc = self._relocalize(rec["pyr"], rec["feats"])
             if reloc is not None:
                 T_wc_np = reloc[0].cpu().numpy()
                 status = "relocalized"
@@ -670,15 +1167,22 @@ class SlamSystem:
         is_kf = self.keyframes.should_insert(rec["frame_id"], T_wc_np, ratio,
                                              rel_log=rel_kf_log)
         if is_kf:
-            # Keyframe creation must see THIS frame, not the chain head.
-            T_wc_saved, fid_saved = self._T_wc, self._frame_id
+            # Keyframe creation (and its depth reads) must see THIS frame,
+            # not the chain head.
+            saved = (self._T_wc, self._frame_id, self._kp_depth, self._depth_prior)
             self._T_wc = torch.from_numpy(T_wc_np).to(self.device)
             self._frame_id = rec["frame_id"]
-            kf = self._make_keyframe(rec["ts"], rec["pyr"], rec["pts"], None)
-            self._T_wc, self._frame_id = T_wc_saved, fid_saved
+            if rec["kp_depth"] is not None:
+                self._kp_depth = rec["kp_depth"]
+            if rec["prior"] is not None:
+                self._depth_prior = rec["prior"]
+            kf = self._make_keyframe(rec["ts"], rec["pyr"], rec["pts"], rec["feats"])
+            self._T_wc, self._frame_id, self._kp_depth, self._depth_prior = saved
+            prev_kf = self.keyframes.latest
             self.keyframes.insert(kf)
             self._kf_poses[kf.frame_id] = T_wc_np.copy()
             self._on_new_keyframe(kf)
+            self._window_ba_on_keyframe(prev_kf, kf)
             ref_kf = self.keyframes.latest
             kf_pose = self._kf_poses[ref_kf.frame_id]
         state = FrameState(
@@ -694,6 +1198,7 @@ class SlamSystem:
         """Retire every in-flight frame (after the last frame, or before a
         frame that takes the synchronous path)."""
         if not self._pipe_queue and self._pipe_ready is None:
+            self._retire_window_ba(wait=True)
             self._drain_pending_correction()
             return None
         self._pipelined = True
@@ -701,6 +1206,7 @@ class SlamSystem:
             state = self._retire_ready()
             while self._pipe_queue:
                 state = self._retire_pipelined()
+            self._retire_window_ba(wait=True)
             return state
         finally:
             self._pipelined = False
@@ -712,6 +1218,185 @@ class SlamSystem:
                 torch.from_numpy(self._corr_pending).to(self.device), self._T_wc
             ))
             self._corr_pending = np.eye(4, dtype=np.float32)
+
+    # --------------------------------------------------------- window BA
+
+    def _window_ba_on_keyframe(self, prev_kf, kf) -> None:
+        """A new keyframe's bundle-adjustment hooks: extend the feature
+        tracks by its matches with the keyframe before it and, every
+        `run_every_n_keyframes`, dispatch a window solve."""
+        cfg = self.config
+        if not (cfg.use_ba and prev_kf is not None and prev_kf.kp_desc is not None
+                and kf.kp_desc is not None):
+            return
+        self._extend_tracks(prev_kf, kf)
+        self._kf_since_ba += 1
+        if self._kf_since_ba >= cfg.ba.run_every_n_keyframes:
+            self._run_window_ba()
+            self._kf_since_ba = 0
+
+    def _extend_tracks(self, prev_kf, new_kf) -> None:
+        """Match the two keyframes' features and extend the track graph; the
+        match table comes to the host in one transfer."""
+        uv_a, uv_b, good, idx_a, idx_b = self._match_features(
+            prev_kf.kp_uv, prev_kf.kp_desc, prev_kf.kp_valid,
+            new_kf.kp_uv, new_kf.kp_desc, new_kf.kp_valid,
+            self._ransac_uniforms(prev_kf.kp_desc.shape[0], new_kf.frame_id),
+        )
+        table = torch.cat([
+            idx_a[:, None].float(), idx_b[:, None].float(), uv_a, uv_b, good[:, None].float(),
+        ], dim=-1).cpu().numpy()
+        self._tracks.add_keyframe_matches(
+            prev_kf.frame_id, new_kf.frame_id,
+            table[:, 0].astype(np.int64), table[:, 1].astype(np.int64),
+            table[:, 2:4], table[:, 4:6], table[:, 6] > 0.5,
+        )
+
+    def _solve_window(self, *problem):
+        """Bundle-adjust the window problem (its six tensors) and pack what
+        the host needs into one vector: iterations, initial and final cost,
+        the refined poses as world <- camera."""
+        bcfg = self.config.ba
+        out = bundle_adjust(
+            BAProblem(*problem), self.cam, max_iters=bcfg.max_iterations,
+            huber_delta=bcfg.huber_delta_px,
+            num_fixed_poses=2,     # monocular: anchor the frame gauge AND the scale
+            pose_prior_weight=bcfg.pose_prior_weight,
+        )
+        return torch.cat([
+            torch.stack([out.iterations.float(), out.initial_cost, out.cost]),
+            se3.inverse(out.T_cw).reshape(-1),
+        ])
+
+    def _window_step(self, problem: BAProblem) -> CapturedStep:
+        """The window solve captured for this problem's shape (the caller is
+        on the solves' stream)."""
+        key = ("ba", tuple(problem.obs_uv.shape), tuple(problem.points.shape))
+        if key not in self._steps:
+            self._steps[key] = CapturedStep(self._solve_window, tuple(problem))
+        return self._steps[key]
+
+    def _warm_window_ba(self) -> None:
+        """Capture the window solve before the loop needs it, on an empty
+        problem of the window's one shape (every observation invalid): the
+        first frame pays the capture's seconds, not the first keyframe with
+        three keyframes behind it in the middle of the pipelined loop."""
+        bcfg = self.config.ba
+        M = self.keyframes.capacity
+        L, O = min(bcfg.landmark_capacity, 1024), min(bcfg.obs_capacity, 8192)
+        self._ba_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._ba_stream):
+            dev = self.device
+            points = torch.zeros((L, 3), dtype=torch.float32, device=dev)
+            points[:, 2].fill_(1.0)
+            self._window_step(BAProblem(
+                T_cw=self._eye.expand(M, 4, 4).clone(), points=points,
+                obs_kf=torch.zeros(O, dtype=torch.int32, device=dev),
+                obs_lm=torch.zeros(O, dtype=torch.int32, device=dev),
+                obs_uv=torch.zeros((O, 2), dtype=torch.float32, device=dev),
+                obs_valid=torch.zeros(O, dtype=torch.bool, device=dev),
+            ))
+        self._ba_stream.synchronize()
+
+    def _run_window_ba(self) -> None:
+        """Reprojection bundle adjustment over the keyframe window (README
+        config 4; what uw-slam's commented-out Ceres scaffolding intended,
+        include/Tracker.h:295-505).
+
+        This only DISPATCHES the solve. On a CUDA device it runs on a side
+        stream, as one replay of a graph captured at the first frame (the
+        problem is padded to one shape), and its packed result goes to
+        pinned memory with an event behind it; `_retire_window_ba` writes
+        the poses back once the event has passed, through the pending
+        correction, so the live loop never waits for the solve. With
+        `ba.asynchronous` off the result is retired at once."""
+        # At most one solve in flight: by the time the next is due the last
+        # has long finished.
+        self._retire_window_ba(wait=True)
+        kfs = self.keyframes.keyframes
+        if len(kfs) < 3:
+            return
+        t0 = time.perf_counter()
+        kf_ids = [k.frame_id for k in kfs]
+        self._tracks.prune_outside_window(set(kf_ids))
+        poses = {fid: np.asarray(self._kf_poses[fid], np.float32).copy() for fid in kf_ids}
+        T_cw = np.stack([self._np_inv_se3(poses[fid]) for fid in kf_ids])
+        bcfg = self.config.ba
+        built = self._tracks.build_problem(
+            kf_ids, T_cw, self.cam,
+            max_landmarks=min(bcfg.landmark_capacity, 1024),
+            max_obs=min(bcfg.obs_capacity, 8192),
+            # One pose count for every window size: the padding poses carry
+            # no observations and the pose prior pins them.
+            max_poses=self.keyframes.capacity,
+        )
+        if built is None:
+            return
+        problem = built[0]
+        event = None
+        if self.device.type == "cpu":
+            pack = self._solve_window(*problem)
+        else:
+            # The solve reads only what the host just built: nothing of the
+            # frames in flight, so the side stream (made with the capture at
+            # the first frame) need not wait for them.
+            with torch.cuda.stream(self._ba_stream):
+                problem = BAProblem(*(t.to(self.device, non_blocking=True) for t in problem))
+                packed = self._window_step(problem)(*problem)
+                pack = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                pack.copy_(packed, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+        # Retirement writes back only the keyframes whose pose nothing else
+        # touched while the solve was in flight.
+        self._ba_inflight = {"pack": pack, "event": event, "kf_ids": kf_ids,
+                             "poses_at_dispatch": poses}
+        self.ba_stats["time"] += time.perf_counter() - t0
+        if not bcfg.asynchronous:
+            self._retire_window_ba(wait=True)
+
+    def _retire_window_ba(self, wait: bool = False) -> None:
+        """Retire a dispatched window solve: write back the refined keyframe
+        poses and pass the newest keyframe's correction on to the live pose.
+        Without `wait` nothing happens until the result has arrived."""
+        rec = self._ba_inflight
+        if rec is None:
+            return
+        event = rec["event"]
+        if event is not None:
+            if not wait and not event.query():
+                return
+            t0 = time.perf_counter()
+            event.synchronize()
+            # What the live loop pays is the dispatch and any wait here; the
+            # solve itself overlaps the tracking.
+            self.ba_stats["time"] += time.perf_counter() - t0
+        self._ba_inflight = None
+        row = rec["pack"].numpy()
+        iters, c0, c = int(row[0]), float(row[1]), float(row[2])
+        self.ba_stats["iters"] += iters
+        self.ba_stats["runs"] += 1
+        if not np.isfinite(c) or c > c0:
+            return
+        kf_ids, snap = rec["kf_ids"], rec["poses_at_dispatch"]
+        T_wc_new = row[3:].reshape(-1, 4, 4)[: len(kf_ids)]
+        updated: dict[int, np.ndarray] = {}
+        for i, fid in enumerate(kf_ids):
+            cur = self._kf_poses.get(fid)
+            if cur is None or not np.allclose(cur, snap[fid]):
+                continue   # corrected meanwhile: the stale refinement yields
+            if not np.isfinite(T_wc_new[i]).all():
+                continue
+            self._kf_poses[fid] = T_wc_new[i].copy()
+            updated[fid] = T_wc_new[i]
+        kfs = self.keyframes.keyframes
+        for i, k in enumerate(kfs):
+            Tn = updated.get(k.frame_id)
+            if Tn is not None:
+                kfs[i] = k._replace(T_wc=torch.from_numpy(Tn.copy()).to(self.device))
+        last_fid = kf_ids[-1]
+        if last_fid in updated:
+            self._apply_live_correction(updated[last_fid] @ self._np_inv_se3(snap[last_fid]))
 
     # ------------------------------------------------------------ export
 

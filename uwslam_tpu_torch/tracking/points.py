@@ -1,7 +1,7 @@
 """Candidate-point selection for direct tracking, batched over frames.
 
 Counterpart of `uwslam_tpu.tracking.points` (`TrackPoints`,
-`topk_gradient_points`, `dense_points` and `_depth_at`). Every field of
+`topk_gradient_points`, `dense_points`, `patch_points` and `_depth_at`). Every field of
 `TrackPoints` has a leading frame (or pair) dimension B and a fixed point
 capacity N; `valid` masks the real entries.
 
@@ -199,4 +199,42 @@ def dense_points(
         depth = torch.where(dok, d, mono_z)
     return TrackPoints(
         uv=uv, p3d=cam.unproject(uv, depth), intensity=intensity, valid=interior & dok
+    )
+
+
+def patch_points(
+    image: torch.Tensor,
+    keypoints_uv: torch.Tensor,
+    keypoints_valid: torch.Tensor,
+    cam: PinholeCamera,
+    depth_image: torch.Tensor | None = None,
+    mono_z: float = 1.0,
+    patch_size: int = 5,
+    max_keypoints: int = 200,
+) -> TrackPoints:
+    """Patches of `patch_size` x `patch_size` pixels around the first
+    `max_keypoints` matched keypoints (uw-slam's ObtainPatchesPoints,
+    src/Tracker.cpp:1190-1242; its start-point precedence bug makes the
+    effective patch 9 x 9, this is the intended size, as in the JAX
+    package). image (B, H, W), keypoints_uv (B, K, 2), keypoints_valid
+    (B, K), depth_image (B, H, W) or None -> TrackPoints of
+    min(K, max_keypoints) * patch_size^2 points, keypoint-major. Intensities
+    are read by kernel K3 (keypoints are subpixel)."""
+    kp = keypoints_uv[:, :max_keypoints]
+    kv = keypoints_valid[:, :max_keypoints]
+    B, H, W = image.shape
+    half = patch_size // 2
+    offs = torch.arange(-half, half + 1, dtype=torch.float32, device=image.device)
+    dv, du = torch.meshgrid(offs, offs, indexing="ij")
+    offsets = torch.stack([du.reshape(-1), dv.reshape(-1)], dim=-1)    # (P, 2)
+    uv = (kp[:, :, None, :] + offsets).reshape(B, -1, 2).contiguous()  # (B, K*P, 2)
+    valid_kp = kv.repeat_interleave(offsets.shape[0], dim=1)
+    inb = (
+        (uv[..., 0] >= 0) & (uv[..., 0] <= W - 1) & (uv[..., 1] >= 0) & (uv[..., 1] <= H - 1)
+    )
+    depth, dok = _depth_at(depth_image, uv, mono_z)
+    vals, iok = cuda_bilinear_sample(image[:, None], uv)
+    return TrackPoints(
+        uv=uv, p3d=cam.unproject(uv, depth), intensity=vals[:, 0],
+        valid=valid_kp & inb & dok & iok,
     )

@@ -1,12 +1,14 @@
 """Synthetic textured-plane views with exact ground truth, in PyTorch.
 
 Counterpart of `smooth_texture`, `render_plane_view`,
-`render_plane_view_distorted` and `plane_depth` in
-`uwslam_tpu.utils.synthetic`. The JAX package draws the texture's
+`render_plane_view_distorted`, `plane_depth` and the multi-plane scene
+(`PlaneSpec`, `make_plane`, `default_scene`, `render_scene_view`,
+`scene_depth`) in `uwslam_tpu.utils.synthetic`. The JAX package draws the texture's
 sinusoid coefficients from `jax.random` with a seed; the port carries the
 seed-0 coefficients (the benchmark scene) as literals, so both packages
 render the same scene. `tests/test_torch_synthetic.py` checks the literals
-against `jax.random`.
+against `jax.random`. The four textures of the multi-plane scene are
+literals too (`_scene_textures`, keyed by seed and detail).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from ..camera.model import PinholeCamera
 from ..lie import se3
+from ._scene_textures import COEFFICIENTS
 
 
 class Texture(NamedTuple):
@@ -135,3 +138,125 @@ def plane_depth(
     """Exact camera-frame depth of the plane per pixel (rays have unit z)."""
     t, _, _ = _plane_hit(cam, T_cam_world, plane_z)
     return torch.clamp(t, min=0.0)
+
+
+class PlaneSpec(NamedTuple):
+    """A finite textured plane patch: a point p0, unit orthogonal in-plane
+    axes e1 and e2, half extents (a1, a2) along them (<= 0: infinite) and a
+    texture, for scenes of several planes with real occlusion boundaries."""
+
+    p0: np.ndarray       # (3,) f32 a point of the plane (world frame)
+    e1: np.ndarray       # (3,) f32 in-plane axis
+    e2: np.ndarray       # (3,) f32 in-plane axis
+    a1: float
+    a2: float
+    texture: Texture
+
+
+def scene_texture(seed: int, detail: float) -> Texture:
+    """The JAX package's `smooth_texture(seed=seed, detail=detail)`
+    coefficients, for the (seed, detail) pairs carried as literals."""
+    try:
+        return Texture(*COEFFICIENTS[(seed, detail)])
+    except KeyError:
+        raise KeyError(
+            f"no texture literals for seed={seed}, detail={detail}; known: "
+            f"{sorted(COEFFICIENTS)}"
+        ) from None
+
+
+def make_plane(center, normal=(0.0, 0.0, -1.0), extent=(0.0, 0.0), seed: int = 0,
+               detail: float = 1.0, texture: Texture | None = None) -> PlaneSpec:
+    """A PlaneSpec from a centre and an outward normal; the in-plane axes
+    complete the normal to an orthonormal frame and texture coordinates are
+    measured along them. The texture is `texture`, else the literals for
+    (seed, detail); seed 0 at detail 1 is the benchmark texture."""
+    n = np.asarray(normal, np.float32)
+    n = n / np.linalg.norm(n)
+    up = np.asarray([0.0, 1.0, 0.0] if abs(n[1]) < 0.9 else [1.0, 0.0, 0.0], np.float32)
+    e1 = np.cross(up, n)
+    e1 = (e1 / np.linalg.norm(e1)).astype(np.float32)
+    e2 = np.cross(n, e1).astype(np.float32)
+    if texture is None:
+        texture = TEXTURE_SEED0 if (seed, detail) == (0, 1.0) else scene_texture(seed, detail)
+    return PlaneSpec(p0=np.asarray(center, np.float32), e1=e1, e2=e2,
+                     a1=float(extent[0]), a2=float(extent[1]), texture=texture)
+
+
+def default_scene() -> tuple[PlaneSpec, ...]:
+    """The canonical non-planar test scene: an infinite, slightly tilted
+    background plane at z = 4, a large tilted slab on the left and two
+    closer occluding patches. Every view from near the origin sees
+    occlusion boundaries and at least three depths: what a constant-depth
+    assumption gets wrong."""
+    return (
+        make_plane((0.0, 0.0, 4.0), normal=(0.05, -0.02, -1.0), seed=3, detail=0.9),
+        make_plane((-0.9, 0.1, 2.6), normal=(0.35, 0.1, -1.0), extent=(1.1, 1.4),
+                   seed=7, detail=1.2),
+        make_plane((0.55, -0.25, 1.8), normal=(-0.1, 0.05, -1.0), extent=(0.45, 0.5),
+                   seed=11, detail=1.5),
+        make_plane((-0.1, 0.75, 2.1), normal=(0.0, -0.3, -1.0), extent=(0.9, 0.25),
+                   seed=5, detail=1.3),
+    )
+
+
+def _raycast_scene(cam: PinholeCamera, T_cam_world: torch.Tensor, scene):
+    """Nearest hit of every pixel's ray: (t, px, py, plane index), each
+    (H, W); t is the ray parameter, equal to the camera-frame depth (rays
+    have unit z); index -1 where nothing is hit."""
+    dev, dt = T_cam_world.device, T_cam_world.dtype
+    v, u = torch.meshgrid(
+        torch.arange(cam.height, dtype=dt, device=dev),
+        torch.arange(cam.width, dtype=dt, device=dev),
+        indexing="ij",
+    )
+    d = torch.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, torch.ones_like(u)], dim=-1)
+    T_world_cam = se3.inverse(T_cam_world)
+    twc = se3.translation(T_world_cam)
+    d_w = torch.einsum("ij,hwj->hwi", se3.rotation(T_world_cam), d)
+
+    t_best = torch.full(d.shape[:2], 1e9, dtype=dt, device=dev)
+    px_best = torch.zeros(d.shape[:2], dtype=dt, device=dev)
+    py_best = torch.zeros(d.shape[:2], dtype=dt, device=dev)
+    idx_best = torch.full(d.shape[:2], -1, dtype=torch.int32, device=dev)
+    for i, pl in enumerate(scene):
+        p0, e1, e2 = (torch.from_numpy(a).to(dev) for a in (pl.p0, pl.e1, pl.e2))
+        n = torch.linalg.cross(e1, e2)
+        denom = d_w @ n
+        denom = torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
+        t = torch.dot(p0 - twc, n) / denom
+        rel = twc + t[..., None] * d_w - p0
+        s1, s2 = rel @ e1, rel @ e2
+        inside = torch.ones_like(t, dtype=torch.bool)
+        if pl.a1 > 0:
+            inside &= torch.abs(s1) <= pl.a1
+        if pl.a2 > 0:
+            inside &= torch.abs(s2) <= pl.a2
+        hit = (t > 1e-4) & inside & (t < t_best)
+        t_best = torch.where(hit, t, t_best)
+        px_best = torch.where(hit, s1, px_best)
+        py_best = torch.where(hit, s2, py_best)
+        idx_best = torch.where(hit, i, idx_best)
+    return t_best, px_best, py_best, idx_best
+
+
+def render_scene_view(cam: PinholeCamera, T_cam_world: torch.Tensor,
+                      scene: tuple[PlaneSpec, ...] | None = None) -> torch.Tensor:
+    """View (H, W) of a scene of occluding planes from the camera pose
+    T_cam_world (4, 4): nearest-hit ray cast against every plane, each with
+    its own texture (at 3 x the plane coordinates); 0 where nothing is hit."""
+    scene = default_scene() if scene is None else scene
+    t, px, py, idx = _raycast_scene(cam, T_cam_world, scene)
+    img = torch.zeros_like(t)
+    for i, pl in enumerate(scene):
+        img = torch.where(idx == i, smooth_texture(px * 3.0, py * 3.0, pl.texture), img)
+    return torch.where(idx >= 0, img, 0.0)
+
+
+def scene_depth(cam: PinholeCamera, T_cam_world: torch.Tensor,
+                scene: tuple[PlaneSpec, ...] | None = None) -> torch.Tensor:
+    """Exact camera-frame depth (H, W) of `render_scene_view`'s geometry; 0
+    where no plane is hit."""
+    scene = default_scene() if scene is None else scene
+    t, _, _, idx = _raycast_scene(cam, T_cam_world, scene)
+    return torch.where(idx >= 0, t, 0.0)
