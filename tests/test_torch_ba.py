@@ -8,6 +8,18 @@ float64 solve of the same equations, with JAX's step beside it at the same
 bound; `bundle_adjust` poses atol 2e-4 on the twist of the pose difference
 and costs rtol 1e-2 (an LM trajectory amplifies last-bit differences of
 the accept / reject comparisons), iterations within 2.
+
+`bundle_adjust` with one fixed pose leaves the monocular scale free (all
+points and translations scaled about the fixed pose cost the same), and
+only the damping picks it: there the two f32 runs, and each against a
+float64 run of the port's own code, differ by up to 2.05e-4 in the raw
+twist (measured under XLA's default ISA, AVX-512, and under AVX2, AVX and
+SSE4_2), nearly all of it scale. So where the scale is free (`default`,
+`no-trim`), every package is held to that float64 run and to the other after
+one least-squares scale is fitted to the translations; what is left measured
+4.4e-5 at most, against the same 2e-4. Two fixed poses (`window`) pin the
+scale, and there the raw twists are held, with no fit (measured 1.2e-6 at
+most, under the default ISA and SSE4_2).
 """
 import numpy as np
 import pytest
@@ -68,10 +80,31 @@ def _close_blocks(a, b, rtol=2e-4):
     assert np.abs(a - b).max() <= rtol * max(np.abs(a).max(), 1e-12)
 
 
-def _pose_gap(T_a, T_b):
-    """Largest |log(T_a T_b^-1)| entry over the poses."""
-    Ta, Tb = torch.from_numpy(np.array(T_a)), torch.from_numpy(np.array(T_b))
+def _pose_gap(T_a, T_b, align_scale=False):
+    """Largest |log(T_a T_b^-1)| entry over the poses; with `align_scale`,
+    after T_a's translations are scaled by the least-squares fit to T_b's
+    (the monocular gauge a window with one fixed pose leaves free)."""
+    Ta = torch.from_numpy(np.array(T_a, np.float64))
+    Tb = torch.from_numpy(np.array(T_b, np.float64))
+    if align_scale:
+        ta, tb = Ta[:, :3, 3].reshape(-1), Tb[:, :3, 3].reshape(-1)
+        Ta[:, :3, 3] *= float(ta @ tb) / max(float(ta @ ta), 1e-300)
     return float(se3.log(se3.compose(Ta, se3.inverse(Tb))).abs().max())
+
+
+def _bundle_adjust_float64(problem, **kwargs):
+    """The port's `bundle_adjust` on the same problem in float64 (its
+    one-hot tables are made f32 by `incidence`, so they are widened here)."""
+    as64 = problem._replace(T_cw=problem.T_cw.double(), points=problem.points.double(),
+                            obs_uv=problem.obs_uv.double())
+    widen = pytest.MonkeyPatch()
+    f32_incidence = schur.incidence
+    widen.setattr(schur, "incidence",
+                  lambda p: schur.Incidence(*(x.double() for x in f32_incidence(p))))
+    try:
+        return schur.bundle_adjust(as64, CAM, **kwargs)
+    finally:
+        widen.undo()
 
 
 def test_reproject_residuals_match_jax():
@@ -142,7 +175,11 @@ def test_bundle_adjust_matches_jax(outliers, kwargs):
     jp, tp, T_gt = make_problem(outliers=outliers)
     out_j = jschur.bundle_adjust(jp, JCAM, max_iters=12, **kwargs)
     out_t = schur.bundle_adjust(tp, CAM, max_iters=12, **kwargs)
-    assert _pose_gap(out_t.T_cw.numpy(), out_j.T_cw) < 2e-4
+    ref = _bundle_adjust_float64(tp, max_iters=12, **kwargs).T_cw.numpy()
+    free_scale = kwargs.get("num_fixed_poses", 1) < 2
+    assert _pose_gap(out_t.T_cw.numpy(), ref, align_scale=free_scale) < 2e-4
+    assert _pose_gap(out_j.T_cw, ref, align_scale=free_scale) < 2e-4
+    assert _pose_gap(out_t.T_cw.numpy(), out_j.T_cw, align_scale=free_scale) < 2e-4
     np.testing.assert_allclose(float(out_t.initial_cost), float(out_j.initial_cost), rtol=1e-4)
     np.testing.assert_allclose(float(out_t.cost), float(out_j.cost), rtol=1e-2)
     assert abs(int(out_t.iterations) - int(out_j.iterations)) <= 2

@@ -222,6 +222,20 @@ def test_unported_flags_exit_nonzero_naming_the_roadmap(dataset, tmp_path, capsy
     assert not (tmp_path / "t.txt").exists()
 
 
+@pytest.mark.parametrize("loop", [(), ("--no-pipeline",)], ids=["pipelined", "synchronous"])
+def test_photo_ba_flag_runs_photometric_window_ba(dataset, tmp_path, capsys, loop):
+    """`--photo-ba` turns on window BA in its photometric form (as the JAX
+    CLI's flag does): exit 0, the solves reported, ATE below 0.02 m."""
+    argv = _args(dataset, tmp_path / "t.txt", "--platform", "cpu", "--photo-ba",
+                 "--kf-max-gap", "4", *loop)
+    assert port_main(argv) == 0
+    out = capsys.readouterr()
+    m = ATE.search(out.out)
+    assert m and float(m.group(1)) < 0.02 and int(m.group(2)) == 18
+    assert re.search(r"window BA: \d+ LM iters over [1-9]\d* runs", out.err)
+    assert (tmp_path / "t.txt").exists()
+
+
 def _jax_uniforms(self, num_matches, seed):
     import jax
 

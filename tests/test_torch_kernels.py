@@ -240,6 +240,22 @@ def test_build_targets_sm90a_from_the_package_sources():
     assert "arch=compute_90a,code=sm_90a" in _lib.NVCC_FLAGS
 
 
+def test_build_falls_back_to_a_user_cache_when_the_package_is_read_only(monkeypatch, tmp_path):
+    """A writable install builds inside the package; a read-only one under
+    $XDG_CACHE_HOME, else ~/.cache. Nothing is compiled here."""
+    from uwslam_tpu_torch.ops import _lib
+
+    monkeypatch.setattr(_lib, "_writable", lambda path: True)
+    assert _lib.build_dir() == _lib.BUILD_DIR
+    monkeypatch.setattr(_lib, "_writable", lambda path: False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    assert _lib.build_dir() == tmp_path / "xdg" / "uwslam_tpu_torch"
+    assert _lib.library_path().parent == tmp_path / "xdg" / "uwslam_tpu_torch"
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert _lib.build_dir() == tmp_path / "home" / ".cache" / "uwslam_tpu_torch"
+
+
 # ---- the pipelined live loop's CUDA graph (160 x 120, 512 points, 4 levels)
 
 LIVE_CAM = PinholeCamera(fx=120.0, fy=120.0, cx=79.5, cy=59.5, width=160, height=120)
@@ -491,3 +507,104 @@ def test_window_ba_on_card_matches_cpu_and_does_not_block(cuda_device):
     assert loose.ba_stats["runs"] == card.ba_stats["runs"] and loose._ba_inflight is None
     ate = [ate_rmse(x.export_trajectory()[1][:, :3, 3], gt[:, :3, 3]) for x in (loose, card)]
     assert ate[0] < 1.5 * ate[1] + 1e-3
+
+
+# ---- photometric window BA: K3 at its shapes, the solve as a CUDA graph
+
+@pytest.mark.cuda
+def test_k3_at_the_photometric_ba_shape_on_card(cuda_device):
+    """10 observers' texels at level 1 of 480 x 640, each sampled at the
+    10 x 2048 projections of the window's points (with edge and outside
+    points), and the reference intensity with C = 1: bit-equal to plain."""
+    g = torch.Generator().manual_seed(5)
+    planes = (torch.rand((10, 3, 240, 320), generator=g) * 255.0).to(cuda_device)
+    texels = ops.pack_texels(planes[:, 0], planes[:, 1], planes[:, 2])
+    uv = torch.rand((10, 20480, 2), generator=g) * torch.tensor([330.0, 250.0]) - 5.0
+    uv[:, :4] = torch.tensor([[319.0, 5.5], [3.25, 239.0], [319.0, 239.0], [0.0, 0.0]])
+    uv = uv.to(cuda_device)
+    before = ops.cuda_bilinear_sample.launches
+    got = ops.cuda_bilinear_sample(texels, uv, texels=True)
+    one = ops.cuda_bilinear_sample(planes[:, :1].contiguous(), uv[:, :2048].contiguous())
+    torch.cuda.synchronize()
+    assert ops.cuda_bilinear_sample.launches == before + 2
+    want = ops.bilinear_sample_texels_plain(texels, uv)
+    want_one = ops.bilinear_sample_plain(planes[:, :1].contiguous(), uv[:, :2048].contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(one, want_one))
+    assert got[1][:, :4].all() and 0.2 < float(got[1].float().mean()) < 1.0
+
+
+def _photo_window(device, keyframes=4, points=256, level=1):
+    """A photometric window on the two-depth scene at LIVE_CAM: keyframe
+    pyramids, top-K points at their exact depths, poses perturbed (numpy
+    seed 0), inverse depths with 5% noise."""
+    import numpy as np
+
+    from uwslam_tpu_torch.ba.photometric import photo_ba_problem_from_keyframes
+    from uwslam_tpu_torch.image.pyramid import build_pyramid
+    from uwslam_tpu_torch.tracking.points import topk_gradient_points
+    from uwslam_tpu_torch.utils.synthetic import render_two_plane_view, two_plane_depth
+
+    rng = np.random.default_rng(0)
+    k = torch.arange(keyframes, dtype=torch.float32)[:, None]
+    T_gt = se3.exp(k * torch.tensor([0.05, 0.02, 0.01, 0.004, -0.006, 0.008])).to(device)
+    pyrs, pts = [], []
+    for T in T_gt:
+        pyr = build_pyramid(render_two_plane_view(LIVE_CAM, T), levels=level + 2)
+        p = topk_gradient_points(pyr.images[0], pyr.grad_mag[0], LIVE_CAM, num_points=points,
+                                 block=4)
+        z = _depth_at_pixels(two_plane_depth(LIVE_CAM, T), p.uv[0])
+        pyrs.append(pyr)
+        pts.append(p._replace(p3d=LIVE_CAM.unproject(p.uv, z[None]), valid=p.valid & (z > 0.1)))
+    noise = torch.from_numpy(rng.normal(scale=0.008, size=(keyframes, 6)).astype(np.float32))
+    noise[0] = 0.0
+    T_init = se3.compose(se3.exp(noise.to(device)), T_gt)
+    prob = photo_ba_problem_from_keyframes(pyrs, T_init, pts, level=level)
+    scale = torch.from_numpy(1.0 + rng.normal(scale=0.05, size=prob.inv_depth.shape)
+                             .astype(np.float32)).to(device)
+    return prob._replace(inv_depth=prob.inv_depth * scale), LIVE_CAM.scaled(level)
+
+
+def _depth_at_pixels(depth, uv):
+    u = uv[:, 0].long().clamp(0, depth.shape[1] - 1)
+    v = uv[:, 1].long().clamp(0, depth.shape[0] - 1)
+    return depth[v, u]
+
+
+def test_photometric_window_solves_on_cpu_tensors():
+    """The card test's window on the CPU (the plain K3): the solve lowers the
+    cost and two solves are bit-equal."""
+    from uwslam_tpu_torch.ba.photometric import photometric_bundle_adjust
+
+    prob, cam = _photo_window("cpu")
+    a = photometric_bundle_adjust(prob, cam, max_iters=6)
+    b = photometric_bundle_adjust(prob, cam, max_iters=6)
+    assert float(a.cost) < 0.5 * float(a.initial_cost)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_captured_photometric_solve_repeats_bit_for_bit_on_card(cuda_device):
+    from uwslam_tpu_torch.ba.photometric import PhotoBAProblem, photometric_bundle_adjust
+    from uwslam_tpu_torch.ops.graph import WARMUP_CALLS, CapturedStep, tree_clone
+
+    prob, cam = _photo_window(cuda_device)
+
+    def solve(*fields):
+        out = photometric_bundle_adjust(PhotoBAProblem(*fields), cam, max_iters=6)
+        return tuple(out)
+
+    eager = solve(*prob)
+    before = ops.cuda_bilinear_sample.launches
+    step = CapturedStep(solve, tuple(prob))
+    first = tree_clone(step(*prob))
+    second = step(*prob)
+    torch.cuda.synchronize()
+    # 2 max_iters + 1 evaluations per solve, each one K3 launch.
+    assert step.kernel_launches[2] == 13
+    assert ops.cuda_bilinear_sample.launches - before == 13 * (2 + WARMUP_CALLS)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(first, eager))
+    cpu = solve(*(t.cpu() for t in prob))
+    gap = se3.log(se3.compose(first[0].cpu(), se3.inverse(cpu[0]))).abs().max()
+    assert float(gap) < 1e-3 and float(first[2]) < 0.5 * float(first[3])

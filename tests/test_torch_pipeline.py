@@ -512,9 +512,9 @@ def test_unfinished_solve_is_left_alone_then_applied_through_the_correction():
     pending = []
     dispatch = system._run_window_ba
 
-    def dispatch_and_hold():
+    def dispatch_and_hold(*window):
         """The first solve's result 'has not arrived': give it an event."""
-        dispatch()
+        dispatch(*window)
         if system._ba_inflight is not None and not pending:
             pending.append(_Pending())
             system._ba_inflight["event"] = pending[0]
@@ -540,7 +540,63 @@ def test_unfinished_solve_is_left_alone_then_applied_through_the_correction():
     assert np.allclose(system._corr_pending, np.eye(4))
 
 
-def test_photometric_window_ba_still_refuses():
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120),
-                   SlamConfig(use_ba=True, ba=BAConfig(photometric=True)), device="cpu")
+def _graph(tracks):
+    """A track graph as plain values: track id -> keyframe -> (u, v, slot)."""
+    return ({tid: {kf: (*map(float, uv), int(slot)) for kf, (uv, slot) in t.obs.items()}
+             for tid, t in tracks.tracks.items()}, tracks._tails, tracks._alias)
+
+
+def test_deferred_keyframe_match_builds_the_eager_track_graph_and_problems():
+    """The pipelined loop dispatches a new keyframe's match with the keyframe
+    before it and applies it once the table has arrived (on the CPU: at the
+    end of the call that retired the keyframe). Held against the retirement
+    as it was, the match run and applied inside it: equal match tables,
+    track graphs and window problems, and so the same trajectory."""
+    frames, _ = fast_sequence(40)
+
+    def spied(system):
+        tables, problems = [], []
+        add, solve = system._tracks.add_keyframe_matches, system._solve_window
+
+        def add_spy(*args):
+            tables.append(args)
+            return add(*args)
+
+        def solve_spy(*problem):
+            problems.append([t.clone() for t in problem])
+            return solve(*problem)
+
+        system._tracks.add_keyframe_matches = add_spy
+        system._solve_window = solve_spy
+        return tables, problems
+
+    deferred = ba_system()
+    got = spied(deferred)
+    eager = ba_system()
+    want = spied(eager)
+
+    def eager_hook(prev_kf, kf):
+        if prev_kf is None or prev_kf.kp_desc is None or kf.kp_desc is None:
+            return
+        table = eager._keyframe_match_table(
+            prev_kf.kp_uv, prev_kf.kp_desc, prev_kf.kp_valid, kf.kp_uv, kf.kp_desc, kf.kp_valid,
+            eager._ransac_uniforms(prev_kf.kp_desc.shape[0], kf.frame_id)).numpy()
+        eager._tracks.add_keyframe_matches(
+            prev_kf.frame_id, kf.frame_id, table[:, 0].astype(np.int64),
+            table[:, 1].astype(np.int64), table[:, 2:4], table[:, 4:6], table[:, 6] > 0.5)
+        eager._kf_since_ba += 1
+        if eager._kf_since_ba >= eager.config.ba.run_every_n_keyframes:
+            eager._run_window_ba()
+            eager._kf_since_ba = 0
+
+    eager._window_ba_on_keyframe = eager_hook
+    run(deferred, frames, True)
+    run(eager, frames, True)
+    assert len(got[0]) == len(want[0]) >= 3 and len(got[1]) == len(want[1]) >= 2
+    for a, b in zip(got[0], want[0]):
+        assert a[:2] == b[:2] and all(np.array_equal(x, y) for x, y in zip(a[2:], b[2:]))
+    for a, b in zip(got[1], want[1]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _graph(deferred._tracks) == _graph(eager._tracks)
+    assert np.array_equal(deferred.export_trajectory()[1], eager.export_trajectory()[1])
+    assert deferred._match_inflight is None and deferred.retire_host_s["match_dispatch"] > 0

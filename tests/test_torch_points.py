@@ -97,6 +97,30 @@ def test_selection_from_raw_frames_matches_jax():
         assert torch.equal(getattr(got, field), getattr(want, field)), field
 
 
+@pytest.mark.parametrize("block", [3, 6, 12])
+def test_topk_gradient_points_refuses_a_block_that_is_not_a_power_of_two(block):
+    """The packed argmax keeps value and in-block index apart only for a
+    power-of-two block (the JAX package's form selects wrongly otherwise)."""
+    pyr = build_pyramid_batched(torch.from_numpy(_frames("synthetic")), levels=3)
+    with pytest.raises(ValueError, match="power of two"):
+        points.topk_gradient_points(pyr.images[0], pyr.grad_mag[0], CAM, num_points=64,
+                                    block=block)
+
+
+@pytest.mark.parametrize("block", [4, 16])
+def test_topk_gradient_points_other_power_of_two_blocks_match_jax(block):
+    frames = _frames("synthetic")
+    jpyr = jax_pyramid(jnp.asarray(frames), levels=3)
+    want = points_from_numpy(jax.vmap(
+        lambda i, g: jpoints.topk_gradient_points(i, g, JCAM, num_points=64, block=block)
+    )(jpyr.images[0], jpyr.grad_mag[0]))
+    pyr = build_pyramid_batched(torch.from_numpy(frames), levels=3)
+    got = points.topk_gradient_points(pyr.images[0], pyr.grad_mag[0], CAM, num_points=64,
+                                      block=block)
+    for field in ("uv", "intensity", "valid"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
 def _residuals(seed, n=512, frac_valid=0.8):
     rng = np.random.default_rng(seed)
     r = (rng.standard_t(3, size=(4, n)) * 6.0).astype(np.float32)

@@ -27,9 +27,11 @@ at the 30 m depths a unit baseline gives `recover_pose`).
 A minimal 8-point solve is the null vector of a 9x9 matrix of rank 8, in
 f32: the two packages' hypotheses score within about 1% of each other, not
 to the last bit. Where two of the eight refit chains end nearly tied in
-MSAC score the packages may crown different ones (seed 0 below: F differs
-by 5e-3). The parity cases are seeds whose winner is clear; the near tie is
-held by score instead, in a test of its own.
+MSAC score the packages may crown different ones, and which one rests on
+the host's XLA build (seed 0 below: F differs by 3e-2 under AVX-512 and
+AVX2, by 1e-5 under AVX and SSE4_2; seed 1 differs under all four). Where
+the winner is the same, the inlier masks must be equal; a near tie is held
+by score and by the true matches each package's mask keeps instead.
 """
 import contextlib
 import os
@@ -184,35 +186,48 @@ def _msac(F, uv_a, uv_b, valid, t2=9.0):
     return float(np.where(valid, np.minimum(d, t2), 0.0).sum())
 
 
+def _explains_the_matches(inliers, valid):
+    """The true matches are in; a wrong match stays out unless it happens to
+    lie along its epipolar line (Sampson distance cannot see that)."""
+    inl = np.asarray(inliers)
+    return bool(inl[:160][valid[:160]].all()) and float(inl[160:].mean()) < 0.3
+
+
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_fundamental_ransac_matches_jax(seed):
     rj, rt, (uv_a, uv_b, valid) = _both_fundamental(seed)
     flips = int((rt.inliers.numpy() != np.asarray(rj.inliers)).sum())
     gap = np.abs(_canonical(rt.F.numpy()) - _canonical(rj.F)).max()
     if gap <= 2e-3:
-        # The packages crowned the same refit chain (on this host: all three
-        # seeds, F within 6e-4): the inlier masks must be equal.
+        # The packages crowned the same refit chain (seed 3 on every host
+        # measured, F within 7e-4): the inlier masks must be equal.
         assert flips == 0 and int(rt.num_inliers) == int(rj.num_inliers)
     else:
-        # Another host's XLA build may make a seed a near tie (see
-        # the module's docstring): then the two models must score alike.
+        # A near tie (see the module's docstring). Which chain wins rests on
+        # the host's XLA build: measured under the default ISA (AVX-512),
+        # AVX2, AVX and SSE4_2, seed 1 crowns another chain than the port's
+        # on all four (MSAC 329.44 against 328.48, 0.3% apart; the masks
+        # differ in 9 wrong matches) and seed 2 crosses F's 2e-3 on some.
+        # Two models of one scene are held by what they explain, not by
+        # which wrong matches happen to fit both: equal MSAC scores within
+        # 2%, and each package's mask has every true match and few wrong.
         sj, st = _msac(rj.F, uv_a, uv_b, valid), _msac(rt.F, uv_a, uv_b, valid)
-        assert abs(sj - st) <= 0.02 * sj and flips <= 2
+        assert abs(sj - st) <= 0.02 * sj
+        assert _explains_the_matches(rj.inliers, valid)
     assert bool(rt.ok) == bool(rj.ok)
-    inl = rt.inliers.numpy()
-    # The true matches are in; a wrong match stays out unless it happens to
-    # lie along its epipolar line (Sampson distance cannot see that).
-    assert inl[:160][valid[:160]].all() and inl[160:].mean() < 0.3
+    assert _explains_the_matches(rt.inliers, valid)
 
 
 def test_fundamental_ransac_near_tie_is_held_by_score():
-    """Seed 0: two refit chains end within 1% in MSAC score and the packages
-    crown different ones. Both models explain the matches equally well."""
+    """Seed 0: two refit chains end within 1% in MSAC score and, on some
+    hosts' XLA builds, the packages crown different ones (2 flips of the
+    mask under AVX-512 and AVX2, none under AVX and SSE4_2). Both models
+    explain the matches equally well."""
     rj, rt, (uv_a, uv_b, valid) = _both_fundamental(0)
     sj, st = _msac(rj.F, uv_a, uv_b, valid), _msac(rt.F, uv_a, uv_b, valid)
     assert abs(sj - st) <= 0.02 * sj
-    assert int((rt.inliers.numpy() != np.asarray(rj.inliers)).sum()) <= 2
-    assert rt.inliers.numpy()[:160][valid[:160]].all()
+    assert _explains_the_matches(rj.inliers, valid)
+    assert _explains_the_matches(rt.inliers, valid)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -163,10 +163,7 @@ def test_clean_sequence_never_lost():
         assert port.process_frame(_view([0.02 * i, 0, 0, 0, 0, 0])).status == "ok"
 
 
-@pytest.mark.parametrize("change", [
-    dict(use_ba=True, ba=BAConfig(photometric=True)), dict(use_loop_closure=True),
-    dict(global_ba=True),
-])
+@pytest.mark.parametrize("change", [dict(use_loop_closure=True), dict(global_ba=True)])
 def test_unported_switches_raise_naming_the_roadmap(change):
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120), SlamConfig(**change),
@@ -178,7 +175,8 @@ def test_unported_switches_raise_naming_the_roadmap(change):
     dict(use_features=True, tracker=TrackerConfig(**TRACKER, depth_bootstrap=True)),
     dict(use_ba=True),
     dict(use_features=True, use_ba=True),
-], ids=["features", "bootstrap", "ba", "features-ba"])
+    dict(use_ba=True, ba=BAConfig(photometric=True, max_iterations=4, run_every_n_keyframes=1)),
+], ids=["features", "bootstrap", "ba", "features-ba", "photo-ba"])
 def test_ported_switches_construct_and_run_on_the_cpu(change):
     """Configs 2 and 4: every switch of this slice constructs and tracks the
     clean sequence (a plane: the bootstrap may or may not install there)."""

@@ -1,4 +1,12 @@
-"""Bundle adjustment: Schur-complement LM over the keyframe window."""
+"""Bundle adjustment over the keyframe window: reprojection (Schur-complement
+LM over poses and landmarks) and photometric (direct alignment over poses
+and inverse depths)."""
+from .photometric import (
+    PhotoBAProblem,
+    PhotoBAResult,
+    photo_ba_problem_from_keyframes,
+    photometric_bundle_adjust,
+)
 from .schur import (
     BAProblem,
     BAResult,
@@ -13,10 +21,14 @@ from .schur import (
 __all__ = [
     "BAProblem",
     "BAResult",
+    "PhotoBAProblem",
+    "PhotoBAResult",
     "build_normal_equations",
     "bundle_adjust",
     "incidence",
     "lm_passes",
+    "photo_ba_problem_from_keyframes",
+    "photometric_bundle_adjust",
     "reproject_residuals",
     "solve_schur",
 ]

@@ -15,7 +15,9 @@ late); `--no-pipeline` or `--profile` gives the synchronous
 `--features` turns the feature front end on (patch points around matched
 keypoints; synchronous by the JAX package's own rule), `--depth-bootstrap`
 the depth prior (pipelined once the prior is installed), `--ba` reprojection
-window bundle adjustment, `--reference-mode` uw-slam's active pipeline.
+window bundle adjustment, `--photo-ba` photometric window bundle adjustment
+(a synchronous solve at the keyframes it is due on), `--reference-mode`
+uw-slam's active pipeline.
 Flags of later slices exit non-zero naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -26,7 +28,6 @@ import time
 
 # Flags whose slice is not ported: flag -> (what, ROADMAP slice and item).
 UNPORTED_FLAGS = {
-    "photo_ba": ("--photo-ba (photometric window BA)", "slice 6, item 16"),
     "loop_closure": ("--loop-closure", "slice 7, item 17"),
     "dist_ba": ("--dist-ba (global distributed BA)", "slice 7, item 17"),
     "viz_port": ("--viz-port (live view)", "slice 8, item 18"),
@@ -280,10 +281,12 @@ def main(argv=None) -> int:
         features=FeatureConfig(per_level=args.kp_per_level),
         keyframes=KeyframeConfig(min_gap=args.kf_min_gap, max_gap=args.kf_max_gap),
         use_features=args.features or args.depth_bootstrap,
-        use_ba=args.ba,
+        use_ba=args.ba or args.photo_ba,
         profile=args.profile,
         trajectory_csv=args.trajectory_out,
     )
+    if args.photo_ba:
+        config = replace(config, ba=replace(config.ba, photometric=True))
     if args.ba_prior_weight is not None:
         config = replace(config, ba=replace(config.ba, pose_prior_weight=args.ba_prior_weight))
     if args.reference_mode:

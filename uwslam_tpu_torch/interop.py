@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ba.photometric import PhotoBAProblem
 from .ba.schur import BAProblem
 from .camera.model import PinholeCamera
 from .features.detect import Keypoints
@@ -94,6 +95,14 @@ def ba_problem_from_numpy(problem, device) -> BAProblem:
         obs_uv=_tensor(problem.obs_uv, device),
         obs_valid=_tensor(problem.obs_valid, device, dtype=bool),
     )
+
+
+def photo_ba_problem_from_numpy(problem, device) -> PhotoBAProblem:
+    """From an object with the fields of `uwslam_tpu.ba.PhotoBAProblem`."""
+    return PhotoBAProblem(**{
+        f: _tensor(getattr(problem, f), device, dtype=bool if f == "valid" else np.float32)
+        for f in PhotoBAProblem._fields
+    })
 
 
 def depth_prior_from_numpy(prior, device) -> DepthPrior:

@@ -2,9 +2,12 @@
 
 All sources under `uwslam_tpu_torch/csrc/` go through ONE nvcc call (which
 compiles them in parallel, `--threads 0`) into a shared library with a plain
-C interface (no PyTorch headers, so the build takes seconds, not minutes). The library lands in `uwslam_tpu_torch/_build/`
-(listed in .gitignore) under a name that hashes the sources and flags, so an
-edited source is rebuilt and an unchanged one is reused. Nothing is built or
+C interface (no PyTorch headers, so the build takes seconds, not minutes).
+The library lands in `uwslam_tpu_torch/_build/` (listed in .gitignore), or,
+where the package directory cannot be written (a read-only install), in a
+per-user cache directory (`$XDG_CACHE_HOME/uwslam_tpu_torch`, else
+`~/.cache/uwslam_tpu_torch`), under a name that hashes the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused. Nothing is built or
 loaded at import: the first kernel launch builds. The build needs the CUDA
 toolkit and no network.
 
@@ -28,7 +31,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = _PKG / "_build"          # the build directory of a writable install
 SOURCES = ("scharr.cu", "warp_sample.cu", "lm_evaluate.cu")
 HEADERS = ("sampling.cuh",)
 NVCC_FLAGS = (
@@ -67,11 +70,24 @@ def _nvcc() -> str:
     return found
 
 
+def _writable(path: Path) -> bool:
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir() -> Path:
+    """`BUILD_DIR` where it (or, before the first build, the package
+    directory) can be written; else the per-user cache directory."""
+    if _writable(BUILD_DIR if BUILD_DIR.exists() else _PKG):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "uwslam_tpu_torch"
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libuwslam_kernels_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libuwslam_kernels_{digest.hexdigest()[:16]}.so"
 
 
 @functools.cache
@@ -83,7 +99,7 @@ def build() -> tuple[Path, float, str]:
     out = library_path()
     if out.exists():
         return out, 0.0, ""
-    BUILD_DIR.mkdir(exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
            *(str(CSRC / s) for s in SOURCES)]

@@ -11,10 +11,11 @@ every frame, tracking either on patch points around the matched keypoints
 (uw-slam's active pipeline) or, with `tracker.depth_bootstrap`, on the
 top-K selection at depths read from a coarse inverse-depth prior that is
 bootstrapped from an essential matrix and refreshed every frame; with
-`use_ba` reprojection bundle adjustment over the keyframe window,
-dispatched at a keyframe and retired a few frames later. Photometric
-window BA, loop closure and global BA raise NotImplementedError naming the
-ROADMAP item that will port them.
+`use_ba` bundle adjustment over the keyframe window: reprojection BA on
+feature tracks, the keyframes' match and the solve dispatched at a keyframe
+and retired a few frames later, or with `ba.photometric` photometric BA on
+the keyframes' pyramids, solved at the keyframe. Loop closure and global BA
+raise NotImplementedError naming the ROADMAP item that will port them.
 
 Two entry points run the same stages. `process_frame` is synchronous: ingest
 (upload, rectify, crop, pyramid with kernel K1), tracking (kernels K3 and
@@ -47,6 +48,11 @@ from .camera.model import (
     undistort_map,
 )
 from .config import SlamConfig, unported
+from .ba.photometric import (
+    PhotoBAProblem,
+    photo_ba_problem_from_keyframes,
+    photometric_bundle_adjust,
+)
 from .ba.schur import BAProblem, bundle_adjust
 from .features import (
     describe,
@@ -104,8 +110,6 @@ class FrameState:
 
 def _refuse_unported(config: SlamConfig) -> None:
     checks = (
-        (config.use_ba and config.ba.photometric,
-         "ba.photometric (photometric window bundle adjustment)", "slice 6, item 16"),
         (config.use_loop_closure, "use_loop_closure", "slice 7, item 17"),
         (config.global_ba, "global_ba (global distributed BA)", "slice 7, item 17"),
     )
@@ -258,8 +262,14 @@ class SlamSystem:
         # Window BA: LM iterations, the host's time (dispatch and any wait)
         # and the solves retired.
         self.ba_stats = {"iters": 0, "time": 0.0, "runs": 0}
+        # Host seconds of a keyframe's retirement with window BA, by part.
+        self.retire_host_s = dict.fromkeys(
+            ("make_keyframe", "match_dispatch", "match_wait", "add_keyframe_matches",
+             "build_problem"), 0.0)
+        self._match_inflight = None # a dispatched keyframe match: table, event, window
         self._ba_inflight = None    # a dispatched solve: packed result, event
-        self._ba_stream = None      # the side stream the solves run on
+        self._ba_stream = None      # the side stream reprojection BA runs on
+        self._ba_warmed = False     # window BA's graphs captured (frame 0)
         self._kf_poses: dict[int, np.ndarray] = {}   # keyframe poses, host copies
         self._eye = torch.eye(4, dtype=torch.float32, device=self.device)
         self._T_wc = self._eye           # world <- current camera
@@ -693,8 +703,8 @@ class SlamSystem:
             )
             self._prev = (pyr, pts, depth_dev)
             self._prev_feats = cur_feats
-            if self.config.use_ba and self.device.type == "cuda" and self._ba_stream is None:
-                self._warm_window_ba()
+            if self.config.use_ba and self.device.type == "cuda" and not self._ba_warmed:
+                self._warm_window_ba(kf)
             if self._bootstrap_enabled(depth_dev) and cur_feats is not None:
                 self._boot_anchor = (cur_feats, self._T_wc,
                                      self.config.tracker.bootstrap_anchor_frames)
@@ -983,7 +993,8 @@ class SlamSystem:
     @property
     def graph_replays(self) -> int:
         """Frames that went through a CUDA graph replay so far."""
-        return sum(step.replays for key, step in self._steps.items() if key[0] != "ba")
+        return sum(step.replays for key, step in self._steps.items()
+                   if key[0] in ("plain", "boot"))
 
     def _can_pipeline(self, depth) -> bool:
         """The megastep covers the two steady states: plain direct tracking,
@@ -1176,7 +1187,9 @@ class SlamSystem:
                 self._kp_depth = rec["kp_depth"]
             if rec["prior"] is not None:
                 self._depth_prior = rec["prior"]
+            t0 = time.perf_counter()
             kf = self._make_keyframe(rec["ts"], rec["pyr"], rec["pts"], rec["feats"])
+            self.retire_host_s["make_keyframe"] += time.perf_counter() - t0
             self._T_wc, self._frame_id, self._kp_depth, self._depth_prior = saved
             prev_kf = self.keyframes.latest
             self.keyframes.insert(kf)
@@ -1222,51 +1235,137 @@ class SlamSystem:
     # --------------------------------------------------------- window BA
 
     def _window_ba_on_keyframe(self, prev_kf, kf) -> None:
-        """A new keyframe's bundle-adjustment hooks: extend the feature
-        tracks by its matches with the keyframe before it and, every
-        `run_every_n_keyframes`, dispatch a window solve."""
+        """A new keyframe's bundle-adjustment hooks, by the JAX package's rule
+        (photometric BA needs no feature tracks). Photometric: every
+        `run_every_n_keyframes`, a window solve, synchronous. Reprojection:
+        the two keyframes' feature match is dispatched (`_dispatch_keyframe_
+        match`) and applied to the track graph when it has arrived, with the
+        window solve it makes due, over the window of this keyframe
+        (`_retire_keyframe_match`); in the pipelined loop that is a few frames
+        later, in the synchronous loop and with `ba.asynchronous` off at once.
+        At most one match is in flight, so the track graph grows in keyframe
+        order."""
         cfg = self.config
-        if not (cfg.use_ba and prev_kf is not None and prev_kf.kp_desc is not None
-                and kf.kp_desc is not None):
+        if not (cfg.use_ba and prev_kf is not None):
             return
-        self._extend_tracks(prev_kf, kf)
+        if not cfg.ba.photometric and (prev_kf.kp_desc is None or kf.kp_desc is None):
+            return
+        self._retire_keyframe_match(wait=True)
         self._kf_since_ba += 1
-        if self._kf_since_ba >= cfg.ba.run_every_n_keyframes:
-            self._run_window_ba()
+        due = self._kf_since_ba >= cfg.ba.run_every_n_keyframes
+        if due:
             self._kf_since_ba = 0
+        if cfg.ba.photometric:
+            if due:
+                self._run_window_ba()
+            return
+        self._match_inflight = self._dispatch_keyframe_match(
+            prev_kf, kf, self._window_snapshot() if due else None)
+        if not (self._pipelined and cfg.ba.asynchronous):
+            self._retire_keyframe_match(wait=True)
 
-    def _extend_tracks(self, prev_kf, new_kf) -> None:
-        """Match the two keyframes' features and extend the track graph; the
-        match table comes to the host in one transfer."""
+    def _keyframe_match_table(self, kp_uv_a, desc_a, valid_a, kp_uv_b, desc_b, valid_b,
+                              uniforms) -> torch.Tensor:
+        """Two keyframes' verified matches as one (K_a, 7) table: idx_a,
+        idx_b, uv_a, uv_b, good."""
         uv_a, uv_b, good, idx_a, idx_b = self._match_features(
-            prev_kf.kp_uv, prev_kf.kp_desc, prev_kf.kp_valid,
-            new_kf.kp_uv, new_kf.kp_desc, new_kf.kp_valid,
-            self._ransac_uniforms(prev_kf.kp_desc.shape[0], new_kf.frame_id),
-        )
-        table = torch.cat([
-            idx_a[:, None].float(), idx_b[:, None].float(), uv_a, uv_b, good[:, None].float(),
-        ], dim=-1).cpu().numpy()
+            kp_uv_a, desc_a, valid_a, kp_uv_b, desc_b, valid_b, uniforms)
+        return torch.cat([idx_a[:, None].float(), idx_b[:, None].float(), uv_a, uv_b,
+                          good[:, None].float()], dim=-1)
+
+    def _match_step(self, inputs) -> CapturedStep:
+        """The keyframe match captured for these keypoint capacities (the
+        caller is on the solves' stream)."""
+        key = ("match", inputs[1].shape[0], inputs[4].shape[0])
+        if key not in self._steps:
+            self._steps[key] = CapturedStep(self._keyframe_match_table, inputs)
+        return self._steps[key]
+
+    def _dispatch_keyframe_match(self, prev_kf, kf, window) -> dict:
+        """Start the match of two keyframes' features. On a CUDA device it is
+        one graph replay on the solves' stream, behind an event of the frame
+        stream (the keyframes' descriptors are written there), and the table
+        goes to pinned memory with an event behind it; on the CPU it is
+        computed here. `window` is the window a solve due at `kf` works on."""
+        t0 = time.perf_counter()
+        feats = (prev_kf.kp_uv, prev_kf.kp_desc, prev_kf.kp_valid,
+                 kf.kp_uv, kf.kp_desc, kf.kp_valid)
+        event = None
+        if self.device.type == "cpu":
+            table = self._keyframe_match_table(
+                *feats, self._ransac_uniforms(prev_kf.kp_desc.shape[0], kf.frame_id))
+        else:
+            ready = torch.cuda.Event()
+            ready.record()
+            with torch.cuda.stream(self._ba_stream):
+                self._ba_stream.wait_event(ready)
+                for t in feats:
+                    t.record_stream(self._ba_stream)
+                inputs = (*feats, self._ransac_uniforms(prev_kf.kp_desc.shape[0], kf.frame_id))
+                on_card = self._match_step(inputs)(*inputs)
+                table = torch.empty(on_card.shape, dtype=on_card.dtype, pin_memory=True)
+                table.copy_(on_card, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+        self.retire_host_s["match_dispatch"] += time.perf_counter() - t0
+        return {"ids": (prev_kf.frame_id, kf.frame_id), "table": table, "event": event,
+                "window": window}
+
+    def _retire_keyframe_match(self, wait: bool = False) -> None:
+        """Apply a dispatched keyframe match to the track graph and dispatch
+        the window solve it made due. Without `wait` nothing happens until
+        the table has arrived."""
+        rec = self._match_inflight
+        if rec is None:
+            return
+        if rec["event"] is not None:
+            if not wait and not rec["event"].query():
+                return
+            t0 = time.perf_counter()
+            rec["event"].synchronize()
+            self.retire_host_s["match_wait"] += time.perf_counter() - t0
+        self._match_inflight = None
+        t0 = time.perf_counter()
+        table = rec["table"].numpy()
         self._tracks.add_keyframe_matches(
-            prev_kf.frame_id, new_kf.frame_id,
-            table[:, 0].astype(np.int64), table[:, 1].astype(np.int64),
+            *rec["ids"], table[:, 0].astype(np.int64), table[:, 1].astype(np.int64),
             table[:, 2:4], table[:, 4:6], table[:, 6] > 0.5,
         )
+        self.retire_host_s["add_keyframe_matches"] += time.perf_counter() - t0
+        if rec["window"] is not None:
+            self._run_window_ba(rec["window"])
 
-    def _solve_window(self, *problem):
-        """Bundle-adjust the window problem (its six tensors) and pack what
-        the host needs into one vector: iterations, initial and final cost,
-        the refined poses as world <- camera."""
-        bcfg = self.config.ba
-        out = bundle_adjust(
-            BAProblem(*problem), self.cam, max_iters=bcfg.max_iterations,
-            huber_delta=bcfg.huber_delta_px,
-            num_fixed_poses=2,     # monocular: anchor the frame gauge AND the scale
-            pose_prior_weight=bcfg.pose_prior_weight,
-        )
+    def _window_snapshot(self):
+        """The window a solve due now works on -> (keyframe ids, their poses)
+        or None under three keyframes; the solve before it is retired first
+        (at most one in flight: by now it has long finished)."""
+        self._retire_solve(wait=True)
+        kfs = self.keyframes.keyframes
+        if len(kfs) < 3:
+            return None
+        kf_ids = [k.frame_id for k in kfs]
+        return kf_ids, {fid: np.asarray(self._kf_poses[fid], np.float32).copy()
+                        for fid in kf_ids}
+
+    @staticmethod
+    def _packed(out) -> torch.Tensor:
+        """What the host needs of a window solve's result, as one vector:
+        iterations, initial and final cost, the refined poses as world <-
+        camera."""
         return torch.cat([
             torch.stack([out.iterations.float(), out.initial_cost, out.cost]),
             se3.inverse(out.T_cw).reshape(-1),
         ])
+
+    def _solve_window(self, *problem):
+        """Bundle-adjust the window problem (its six tensors), packed."""
+        bcfg = self.config.ba
+        return self._packed(bundle_adjust(
+            BAProblem(*problem), self.cam, max_iters=bcfg.max_iterations,
+            huber_delta=bcfg.huber_delta_px,
+            num_fixed_poses=2,     # monocular: anchor the frame gauge AND the scale
+            pose_prior_weight=bcfg.pose_prior_weight,
+        ))
 
     def _window_step(self, problem: BAProblem) -> CapturedStep:
         """The window solve captured for this problem's shape (the caller is
@@ -1276,50 +1375,69 @@ class SlamSystem:
             self._steps[key] = CapturedStep(self._solve_window, tuple(problem))
         return self._steps[key]
 
-    def _warm_window_ba(self) -> None:
-        """Capture the window solve before the loop needs it, on an empty
-        problem of the window's one shape (every observation invalid): the
-        first frame pays the capture's seconds, not the first keyframe with
-        three keyframes behind it in the middle of the pipelined loop."""
+    def _warm_window_ba(self, kf) -> None:
+        """Capture what the window BA runs before the loop needs it, on inputs
+        of its one shape, and replay each graph once: the first frame pays
+        the captures' seconds and the first launch of each graph (which
+        uploads its thousands of nodes), not a keyframe in the middle of the
+        pipelined loop. Photometric: the solve on the first keyframe alone
+        (padded, so no observation is valid). Reprojection: the solve on an
+        empty problem (every observation invalid) and the keyframe match on
+        the first keyframe's features matched with themselves."""
         bcfg = self.config.ba
+        self._ba_warmed = True
+        if bcfg.photometric:
+            problem, active = self._photo_window([kf])
+            self._photo_step(problem, active)(*problem, active)
+            torch.cuda.current_stream(self.device).synchronize()
+            return
+        self._ba_stream = torch.cuda.Stream(self.device)
         M = self.keyframes.capacity
         L, O = min(bcfg.landmark_capacity, 1024), min(bcfg.obs_capacity, 8192)
-        self._ba_stream = torch.cuda.Stream(self.device)
+        ready = torch.cuda.Event()
+        ready.record()
         with torch.cuda.stream(self._ba_stream):
+            self._ba_stream.wait_event(ready)
             dev = self.device
             points = torch.zeros((L, 3), dtype=torch.float32, device=dev)
             points[:, 2].fill_(1.0)
-            self._window_step(BAProblem(
+            empty = BAProblem(
                 T_cw=self._eye.expand(M, 4, 4).clone(), points=points,
                 obs_kf=torch.zeros(O, dtype=torch.int32, device=dev),
                 obs_lm=torch.zeros(O, dtype=torch.int32, device=dev),
                 obs_uv=torch.zeros((O, 2), dtype=torch.float32, device=dev),
                 obs_valid=torch.zeros(O, dtype=torch.bool, device=dev),
-            ))
+            )
+            self._window_step(empty)(*empty)
+            if kf.kp_desc is not None:
+                feats = (kf.kp_uv, kf.kp_desc, kf.kp_valid) * 2
+                inputs = (*feats, self._ransac_uniforms(kf.kp_desc.shape[0], 0))
+                self._match_step(inputs)(*inputs)
         self._ba_stream.synchronize()
 
-    def _run_window_ba(self) -> None:
+    def _run_window_ba(self, window=None) -> None:
         """Reprojection bundle adjustment over the keyframe window (README
         config 4; what uw-slam's commented-out Ceres scaffolding intended,
-        include/Tracker.h:295-505).
+        include/Tracker.h:295-505); with `ba.photometric`, the photometric
+        solve instead. `window` is (keyframe ids, their poses) as
+        `_window_snapshot` took them, by default now.
 
         This only DISPATCHES the solve. On a CUDA device it runs on a side
         stream, as one replay of a graph captured at the first frame (the
         problem is padded to one shape), and its packed result goes to
-        pinned memory with an event behind it; `_retire_window_ba` writes
-        the poses back once the event has passed, through the pending
+        pinned memory with an event behind it; `_retire_solve` writes the
+        poses back once the event has passed, through the pending
         correction, so the live loop never waits for the solve. With
         `ba.asynchronous` off the result is retired at once."""
-        # At most one solve in flight: by the time the next is due the last
-        # has long finished.
-        self._retire_window_ba(wait=True)
-        kfs = self.keyframes.keyframes
-        if len(kfs) < 3:
+        if self.config.ba.photometric:
+            self._run_window_photo_ba()
             return
+        window = self._window_snapshot() if window is None else window
+        if window is None:
+            return
+        kf_ids, poses = window
         t0 = time.perf_counter()
-        kf_ids = [k.frame_id for k in kfs]
         self._tracks.prune_outside_window(set(kf_ids))
-        poses = {fid: np.asarray(self._kf_poses[fid], np.float32).copy() for fid in kf_ids}
         T_cw = np.stack([self._np_inv_se3(poses[fid]) for fid in kf_ids])
         bcfg = self.config.ba
         built = self._tracks.build_problem(
@@ -1330,6 +1448,7 @@ class SlamSystem:
             # no observations and the pose prior pins them.
             max_poses=self.keyframes.capacity,
         )
+        self.retire_host_s["build_problem"] += time.perf_counter() - t0
         if built is None:
             return
         problem = built[0]
@@ -1353,9 +1472,16 @@ class SlamSystem:
                              "poses_at_dispatch": poses}
         self.ba_stats["time"] += time.perf_counter() - t0
         if not bcfg.asynchronous:
-            self._retire_window_ba(wait=True)
+            self._retire_solve(wait=True)
 
     def _retire_window_ba(self, wait: bool = False) -> None:
+        """Retire what window BA has in flight: a keyframe match that has
+        arrived (which may dispatch a solve), then a solve that has finished.
+        With `wait`, wait for both."""
+        self._retire_keyframe_match(wait)
+        self._retire_solve(wait)
+
+    def _retire_solve(self, wait: bool = False) -> None:
         """Retire a dispatched window solve: write back the refined keyframe
         poses and pass the newest keyframe's correction on to the live pose.
         Without `wait` nothing happens until the result has arrived."""
@@ -1397,6 +1523,84 @@ class SlamSystem:
         last_fid = kf_ids[-1]
         if last_fid in updated:
             self._apply_live_correction(updated[last_fid] @ self._np_inv_se3(snap[last_fid]))
+
+    # ---------------------------------------------- photometric window BA
+
+    def _photo_window(self, kfs):
+        """The keyframes' photometric problem at `ba.photometric_level`, padded
+        to the keyframe capacity (one shape on every device: a padding
+        keyframe has an identity pose, no valid point and takes no part) ->
+        (problem, active (capacity,) bool)."""
+        lvl = self.config.ba.photometric_level
+        prob = photo_ba_problem_from_keyframes(
+            [k.pyramid for k in kfs], [se3.inverse(k.T_wc) for k in kfs],
+            [k.points for k in kfs], level=lvl,
+        )
+        pad = self.keyframes.capacity - len(kfs)
+        active = torch.arange(self.keyframes.capacity, device=self.device) < len(kfs)
+        if pad <= 0:
+            return prob, active
+
+        def padded(x, value):
+            fill = torch.full((pad, *x.shape[1:]), value, dtype=x.dtype, device=x.device)
+            return torch.cat([x, fill])
+
+        return PhotoBAProblem(
+            images=padded(prob.images, 0.0), grad_x=padded(prob.grad_x, 0.0),
+            grad_y=padded(prob.grad_y, 0.0),
+            T_cw=torch.cat([prob.T_cw, self._eye.expand(pad, 4, 4)]),
+            uv=padded(prob.uv, 0.0), inv_depth=padded(prob.inv_depth, 1.0),
+            intensity=padded(prob.intensity, 0.0), valid=padded(prob.valid, False),
+        ), active
+
+    def _solve_photo_window(self, *args):
+        """Photometric BA of the padded window (the problem's eight tensors,
+        then `active`), packed."""
+        bcfg = self.config.ba
+        return self._packed(photometric_bundle_adjust(
+            PhotoBAProblem(*args[:-1]), self.cam.scaled(bcfg.photometric_level),
+            max_iters=bcfg.max_iterations, huber_delta=bcfg.photometric_huber,
+            active=args[-1],
+        ))
+
+    def _photo_step(self, problem: PhotoBAProblem, active) -> CapturedStep:
+        """The photometric solve captured for this window's shape."""
+        key = ("photo", *problem.images.shape, problem.uv.shape[1])
+        if key not in self._steps:
+            self._steps[key] = CapturedStep(self._solve_photo_window, (*problem, active))
+        return self._steps[key]
+
+    def _run_window_photo_ba(self) -> None:
+        """Direct photometric window BA over the keyframe pyramids (the cost
+        uw-slam's ResidualIntensity Ceres scaffolding intended,
+        include/Tracker.h:295-505): joint LM over the keyframe poses and the
+        points' inverse depths. Synchronous, as in the JAX package: on a CUDA
+        device one replay of the graph captured at the first frame and one
+        read of the packed result. The refined poses are written back and the
+        newest keyframe's correction reaches the live pose."""
+        kfs = self.keyframes.keyframes
+        if len(kfs) < 3:
+            return
+        t0 = time.perf_counter()
+        problem, active = self._photo_window(kfs)
+        if self.device.type == "cpu":
+            row = self._solve_photo_window(*problem, active).numpy()
+        else:
+            row = self._photo_step(problem, active)(*problem, active).cpu().numpy()
+        self.ba_stats["iters"] += int(row[0])
+        self.ba_stats["time"] += time.perf_counter() - t0
+        self.ba_stats["runs"] += 1
+        c0, c = float(row[1]), float(row[2])
+        if not np.isfinite(c) or c > c0:
+            return
+        T_new_wc = row[3:].reshape(-1, 4, 4)[: len(kfs)]
+        last_old = kfs[-1].T_wc.cpu().numpy()
+        for i, k in enumerate(kfs):
+            kfs[i] = k._replace(T_wc=torch.from_numpy(T_new_wc[i].copy()).to(self.device))
+            self._kf_poses[k.frame_id] = T_new_wc[i].copy()
+        # Loop closure's pose store takes these poses too once it is ported
+        # (ROADMAP item 17c: `_loops.update_poses`).
+        self._apply_live_correction(T_new_wc[-1] @ self._np_inv_se3(last_old))
 
     # ------------------------------------------------------------ export
 

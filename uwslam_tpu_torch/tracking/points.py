@@ -101,7 +101,11 @@ def topk_gradient_points(
     replaced by 63 - (index in block), and one max yields value and place;
     ties of the packed value go to the lowest in-block index. The blocks are
     then sorted stably by descending magnitude (ties keep block order) and
-    padded to capacity, so the selection matches the JAX package exactly."""
+    padded to capacity, so the selection matches the JAX package exactly.
+    The packing keeps value and index bits apart only when block * block is
+    a power of two, so `block` must be one."""
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"block must be a power of two, got {block}")
     B, H, W = grad_mag.shape
     dev = grad_mag.device
     row = torch.arange(H, device=dev)[:, None]

@@ -1,7 +1,8 @@
 """Synthetic textured-plane views with exact ground truth, in PyTorch.
 
 Counterpart of `smooth_texture`, `render_plane_view`,
-`render_plane_view_distorted`, `plane_depth` and the multi-plane scene
+`render_plane_view_distorted`, `plane_depth`, the two-depth scene
+(`render_two_plane_view`, `two_plane_depth`) and the multi-plane scene
 (`PlaneSpec`, `make_plane`, `default_scene`, `render_scene_view`,
 `scene_depth`) in `uwslam_tpu.utils.synthetic`. The JAX package draws the texture's
 sinusoid coefficients from `jax.random` with a seed; the port carries the
@@ -137,6 +138,41 @@ def plane_depth(
 ) -> torch.Tensor:
     """Exact camera-frame depth of the plane per pixel (rays have unit z)."""
     t, _, _ = _plane_hit(cam, T_cam_world, plane_z)
+    return torch.clamp(t, min=0.0)
+
+
+def _two_plane_hit(cam: PinholeCamera, T_cam_world: torch.Tensor, z_near: float,
+                   z_far: float):
+    """Ray parameter t and world (x, y) of the two-depth scene: world x < 0
+    lies on the plane z = z_near, x >= 0 on z = z_far."""
+    t1, px1, py1 = _plane_hit(cam, T_cam_world, z_near)
+    t2, px2, py2 = _plane_hit(cam, T_cam_world, z_far)
+    near = px1 < 0.0
+    return (torch.where(near, t1, t2), torch.where(near, px1, px2),
+            torch.where(near, py1, py2))
+
+
+def render_two_plane_view(
+    cam: PinholeCamera,
+    T_cam_world: torch.Tensor,
+    z_near: float = 2.0,
+    z_far: float = 3.5,
+    texture: Texture = TEXTURE_SEED0,
+) -> torch.Tensor:
+    """View of the two-depth scene from camera pose(s) T_cam_world
+    (..., 4, 4) -> (..., H, W) f32. A single plane is degenerate for
+    two-view geometry and for joint pose-and-depth refinement (the
+    plane-induced homography); this scene has depth structure."""
+    t, px, py = _two_plane_hit(cam, T_cam_world, z_near, z_far)
+    return torch.where(t <= 0, 0.0, smooth_texture(px, py, texture))
+
+
+def two_plane_depth(
+    cam: PinholeCamera, T_cam_world: torch.Tensor, z_near: float = 2.0, z_far: float = 3.5
+) -> torch.Tensor:
+    """Exact camera-frame depth of `render_two_plane_view`'s scene per pixel
+    (rays have unit z, so depth is the ray parameter)."""
+    t, _, _ = _two_plane_hit(cam, T_cam_world, z_near, z_far)
     return torch.clamp(t, min=0.0)
 
 
