@@ -81,7 +81,9 @@ fails. Phases, one line each:
    launches per frame and idle share, beside phase 9's synchronous loop;
    each kernel's launches in that window counted by its name in the
    profile must equal what the wrappers counted (a replay runs no Python,
-   so the wrappers' counts on this path are added per replay).
+   so the wrappers' counts on this path are added per replay); a window
+   whose trace comes back short of records is profiled again, up to three
+   windows.
 12. Rectification: 32 frames rendered with radtan distortion; every kernel
    against its plain version at the cropped region of interest's shapes
    (1 x 464 x 624 and its two halvings, no multiples of a 32 x 8 block), as
@@ -145,10 +147,30 @@ fails. Phases, one line each:
    within PHOTO_PIPE_ATE_GAP, ATE within PHOTO_ATE_RATIO of the JAX
    package's CPU run, the card against the CPU's synchronous run of all 96
    frames (its 5 solves) within 1e-3, and the pipelined frame times.
+20. Configs 5, 6 and 7 (loop closure and the global distributed BA), their
+   sequence rendered on the card as eval.py renders its tum_long dataset
+   (the four broadband planes of its `tum` scene, the loop path that
+   revisits itself every `loop_period` frames, gain and bias drift and
+   noise of sigma 1.5 from a seeded generator) and run through the CLI with
+   eval.py's flags: (a) config 5 at eval.py's quick size (80 frames, period
+   56) twice on the card with the window solves retired at once, bit-equal,
+   and once on the CPU in a process of its own while the card runs; each
+   under eval.py's health checks and the ATE bar, card against CPU
+   reported (CONFIG5_ATE_RTOL says why it is not held); (b) configs 6 and 7
+   the same way, under their health checks (config 5 better than config 6);
+   (c) config 5 at full size (640 frames, period 160) as the CLI runs it,
+   pipelined: at least one loop edge, a global BA on at least 100
+   observations and applied, ATE within 1.25x the JAX package's CPU run,
+   K1, `lm_evaluate` and K3 launched; frames/s, frame times, loop closure's
+   host ms per keyframe, the global BA's figures; (d) the landmark-sharded
+   solve with 8 shards beside `ba.schur`'s `bundle_adjust` on one problem,
+   both within 5e-3 of the truth, two sharded solves bit-equal (direct and
+   pcg); a Sim(3) pose graph of the full run's size eager and with its LM
+   pass as a captured graph, bit-equal, and their ms per solve.
 
 Then a JSON line of per-kernel results (launches on the offline, the live,
-the depth, the pipelined, the rectified, the bootstrap, the BA and the
-photometric BA path;
+the depth, the pipelined, the rectified, the bootstrap, the BA, the
+photometric BA and the full-size config-5 path;
 time, plain version's
 time, the card's bound for the same bytes and operations, and a library
 call's time where one computes the same function), the card's name and
@@ -161,6 +183,8 @@ import io
 import json
 import re
 import statistics
+import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -207,6 +231,7 @@ DEPTH_CPU_FRAMES = 32        # the CPU tracks this prefix of the depth runs
 PIPE_MIN_GRAPH_FRAMES = 90   # of 96: all but the first go through the graph
 PIPE_VS_SYNC_ATE = 5e-3      # m, as tests/test_pipeline.py
 PIPE_PROFILED_FRAMES = 8
+PROFILE_ATTEMPTS = 3
 # m, over the frames that are ok. At retirement the lost frame takes the last
 # retired pose and the frames in flight coast on it, so the trajectory keeps
 # the camera's motion over those frames as an offset (the JAX package's
@@ -1336,33 +1361,43 @@ def phase_pipelined_timing(frames, frame_ms, sync: dict, table):
         system.process_frame_async(frames[i], timestamp=float(i))
     torch.cuda.synchronize()
     reps = PIPE_PROFILED_FRAMES
-    replays_before = system.graph_replays
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    for k in table:
-        k["wrapper"].launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for i in range(LIVE_WARMUP, LIVE_WARMUP + reps):
-            system.process_frame_async(frames[i], timestamp=float(i))
-        end.record()
-        torch.cuda.synchronize()
-    counted_by_wrappers = {k["name"]: k["wrapper"].launches for k in table}
-    window_ms = start.elapsed_time(end) / reps
-    replays = system.graph_replays - replays_before
-    if replays != reps:
-        raise AssertionError(f"{replays} of the {reps} profiled frames went through the graph")
+    missed = []
+    # The profiler's activity trace of a window of ~60,000 kernels can come
+    # back a record or two short (seen once on an H100: 23 of 24 K2
+    # launches): the window is profiled again, up to PROFILE_ATTEMPTS times,
+    # and one window must show every launch the wrappers counted.
+    for attempt in range(PROFILE_ATTEMPTS):
+        first = LIVE_WARMUP + attempt * reps
+        replays_before = system.graph_replays
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for k in table:
+            k["wrapper"].launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for i in range(first, first + reps):
+                system.process_frame_async(frames[i], timestamp=float(i))
+            end.record()
+            torch.cuda.synchronize()
+        counted_by_wrappers = {k["name"]: k["wrapper"].launches for k in table}
+        window_ms = start.elapsed_time(end) / reps
+        replays = system.graph_replays - replays_before
+        if replays != reps:
+            raise AssertionError(f"{replays} of the {reps} profiled frames went through the graph")
+        averages = prof.key_averages()
+        kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        if not busy_ms > 0:
+            raise AssertionError("the profiler saw no device time in the pipelined window")
+        seen = {name: sum(e.count for e in kernels if symbol in e.key)
+                for name, symbol in KERNEL_SYMBOLS.items()}
+        if seen == counted_by_wrappers and all(seen.values()):
+            break
+        missed.append(seen)
+    else:
+        raise AssertionError(f"launches in the profiled windows: the profiler saw {missed} by "
+                             f"kernel name, the wrappers counted {counted_by_wrappers}")
     (step,) = system._steps.values()
     system.flush()
-    averages = prof.key_averages()
-    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
-    if not busy_ms > 0:
-        raise AssertionError("the profiler saw no device time in the pipelined window")
-    seen = {name: sum(e.count for e in kernels if symbol in e.key)
-            for name, symbol in KERNEL_SYMBOLS.items()}
-    if seen != counted_by_wrappers or not all(seen.values()):
-        raise AssertionError(f"launches in the profiled window: the profiler saw {seen} by "
-                             f"kernel name, the wrappers counted {counted_by_wrappers}")
     graph_launches = sum(e.count for e in averages if e.key == "cudaGraphLaunch") / reps
     return {
         "frames_per_s": len(steady) / (sum(steady) / 1e3),
@@ -1375,6 +1410,7 @@ def phase_pipelined_timing(frames, frame_ms, sync: dict, table):
             "device_launches_per_frame": sum(e.count for e in kernels) / reps,
             "graph_launches_per_frame": graph_launches,
             "kernel_launches_seen_by_name": seen,
+            "windows_short_of_records": missed,
             "kernel_launches_counted": counted_by_wrappers,
             "kernel_launches_per_replay_at_capture": dict(zip(
                 (k["name"] for k in table), step.kernel_launches)),
@@ -2216,6 +2252,455 @@ def phase_photo_ba(frames, poses, table):
     }, times
 
 
+# -------------------------------- configs 5-7: loop closure and global BA
+
+# eval.py's patterns for the CLI's loop-closure and global-BA lines (the JAX
+# CLI's format, which the port's CLI prints).
+LOOP_RE = re.compile(r"loop closure: (\d+) edges accepted")
+DBA_RE = re.compile(
+    r"dist BA: (\d+) kfs, (\d+) landmarks, (\d+) obs over (\d+) devices: "
+    r"(\d+) iters in ([0-9.]+)s \(([0-9.]+) iters/s\), cost "
+    r"([0-9.eE+-]+) -> ([0-9.eE+-]+)( \(not applied\))?")
+# eval.py:439-447's long-sequence flags; configs 5, 6 and 7 add
+# --loop-closure and --dist-ba, --loop-closure, --dist-ba.
+CONFIG5_ARGS = ["--levels", "4", "--mono-depth", "2.5", "--features", "--ba",
+                "--depth-bootstrap", "--kf-max-gap", "6", "--kp-per-level", "768",
+                "--host-devices", "8"]
+CONFIG_FLAGS = {5: ["--loop-closure", "--dist-ba"], 6: ["--loop-closure"], 7: ["--dist-ba"]}
+QUICK_FRAMES, QUICK_LOOP_PERIOD = 80, 56       # eval.py --quick
+FULL_FRAMES, FULL_LOOP_PERIOD = 640, 160
+TUM_NOISE_SIGMA = 1.5                          # eval.py's make_tum_dataset
+TUM_SEED = 4                                   # eval.py's tum_long dataset
+# 1.25 x the JAX package's CPU run of config 5 (RESULTS_r05.json: 0.2382 m,
+# on its own rendering of the same path; the frames differ in the noise draw).
+CONFIG5_ATE_MAX = 0.30
+# Card against the port's CPU run at the quick size, as phase 15 holds config
+# 2 (equal keyframes, loop edges and map counts, ATE within 15%, poses within
+# 0.03): REPORTED, not asserted. On this path last-bit differences decide
+# keyframes, loop edges and the monocular scale the Sim(3) pose graph
+# settles on: six runs of the same 80 frames that differ only in summation
+# order or in the frame a window solve lands on gave ATE 0.051 to 0.214 m,
+# 17 or 18 keyframes, 3 to 5 loop edges (an H100 80GB HBM3 and CPUs; ROADMAP
+# section 3). Each run is held to eval.py's health checks and the ATE bar.
+CONFIG5_ATE_RTOL = 0.15
+DIST_BA_MIN_OBS = 100                          # eval.py's health check
+CPU_RUN_THREADS = 4      # the port's CPU run of config 5, beside the card's runs
+CPU_RUN_TIMEOUT_S = 600
+DIST_TRUTH_ATOL = 5e-3                         # tests/test_parallel.py:99-110
+RIGID_ATOL = 1e-4                              # a keyframe pose's R^T R against I
+
+
+def tum_scene():
+    """eval.py:_scene("tum"): four occluding planes with broadband textures."""
+    from uwslam_tpu_torch.utils.synthetic import make_plane
+
+    return (
+        make_plane((0.0, 0.0, 5.0), normal=(0.05, -0.02, -1.0), seed=3, detail=0.9, octaves=4),
+        make_plane((-0.9, 0.1, 2.4), normal=(0.35, 0.1, -1.0), extent=(1.1, 1.4), seed=7,
+                   detail=1.2, octaves=4),
+        make_plane((0.5, -0.2, 1.4), normal=(-0.1, 0.05, -1.0), extent=(0.5, 0.55), seed=11,
+                   detail=1.5, octaves=4),
+        make_plane((-0.15, 0.6, 1.8), normal=(0.0, -0.3, -1.0), extent=(0.9, 0.3), seed=5,
+                   detail=1.3, octaves=4),
+    )
+
+
+def loop_trajectory(n: int, loop_period: int, dev):
+    """eval.py:_trajectory(n, loop_period=...): every sinusoid's frequency a
+    multiple of 2 pi / loop_period, so pose(i + loop_period) == pose(i): a
+    true revisit -> (n, 4, 4) camera-from-world poses."""
+    import math
+
+    from uwslam_tpu_torch.lie import se3
+
+    w0 = 2.0 * math.pi / loop_period
+    freqs = (w0, w0, w0, w0, 2 * w0, w0)
+    amps = (0.30, 0.12, 0.10, 0.030, 0.045, 0.020)
+    phases = (0.0, 0.7, 1.9, 0.3, 2.1, 1.1)
+    xi = torch.tensor([[a * math.sin(f * i + p) - a * math.sin(p)
+                        for a, f, p in zip(amps, freqs, phases)] for i in range(n)],
+                      dtype=torch.float32, device=dev)
+    return se3.exp(xi)
+
+
+def write_tum_sequence(root: Path, n: int, loop_period: int, dev) -> list[str]:
+    """eval.py:make_tum_dataset rendered by the port on `dev`: the tum scene
+    along the loop path, 640 x 480 at fx = fy = 525, gain and bias drift of
+    eval.py:176-182 and noise of sigma 1.5 from a seeded generator, as 8-bit
+    PGM files, TUM ground truth and calibration -> the CLI's data arguments."""
+    from uwslam_tpu_torch.camera import PinholeCamera
+    from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.utils.synthetic import apply_photometric, render_scene_view
+
+    cam = PinholeCamera(fx=525.0, fy=525.0, cx=319.5, cy=239.5, width=640, height=480)
+    scene = tum_scene()
+    poses = loop_trajectory(n, loop_period, dev)
+    gen = torch.Generator(dev).manual_seed(TUM_SEED)
+    rgb = root / "rgb"
+    rgb.mkdir(parents=True)
+    lines = ["# ground truth trajectory\n# synthetic multi-plane scene\n"
+             "# ts tx ty tz qx qy qz qw\n"]
+    q, t = (x.cpu().numpy() for x in se3.to_quaternion_translation(se3.inverse(poses)))
+    for i in range(n):
+        img = apply_photometric(render_scene_view(cam, poses[i], scene), gen,
+                                noise_sigma=TUM_NOISE_SIGMA, gain=1.0 + 0.04 * np.sin(0.11 * i),
+                                bias=3.0 * np.sin(0.07 * i + 1.0))
+        ts = i / 30.0
+        pix = img.to(torch.uint8).cpu().numpy()
+        (rgb / f"{ts:012.6f}.pgm").write_bytes(b"P5\n640 480\n255\n" + pix.tobytes())
+        lines.append(f"{ts:.6f} {t[i, 0]:.6f} {t[i, 1]:.6f} {t[i, 2]:.6f} "
+                     f"{q[i, 1]:.6f} {q[i, 2]:.6f} {q[i, 3]:.6f} {q[i, 0]:.6f}\n")
+    (root / "groundtruth.txt").write_text("".join(lines))
+    (root / "calib.xml").write_text("""<?xml version="1.0"?><opencv_storage>
+<in_width>640</in_width><in_height>480</in_height>
+<out_width>640</out_width><out_height>480</out_height>
+<calibration_values type_id="opencv-matrix"><rows>1</rows><cols>4</cols>
+<dt>f</dt><data>525.0 525.0 319.5 239.5</data></calibration_values>
+<rectification type_id="opencv-matrix"><rows>1</rows><cols>4</cols>
+<dt>f</dt><data>0 0 0 0</data></rectification></opencv_storage>""")
+    return ["-d", str(rgb), "-c", str(root / "calib.xml"), "--tum-gt",
+            str(root / "groundtruth.txt")]
+
+
+def run_loop_config(data_args, config: int, platform: str, table=None,
+                    retire_at_once: bool = False) -> dict:
+    """README config 5, 6 or 7 through the port's CLI in this process, with
+    the SlamSystem it builds kept for inspection: ATE, keyframes, loop edges,
+    the global BA's line, host time per pipelined frame call, loop closure's
+    host time, the exported poses and (with `table`) the kernels' launches
+    over the run (counts set to 0 just before). With `retire_at_once` the
+    window solves are retired at their dispatch (`ba.asynchronous` off): by
+    default a solve lands at the first frame that finds it finished, which
+    depends on timing on the card (and is at the next frame on the CPU)."""
+    from dataclasses import replace
+
+    from uwslam_tpu_torch import system as port_system
+    from uwslam_tpu_torch.cli.main import main as cli_main
+
+    made = []
+
+    class Recorded(port_system.SlamSystem):
+        def __init__(self, calibration, config, device):
+            if retire_at_once:
+                config = replace(config, ba=replace(config.ba, asynchronous=False))
+            super().__init__(calibration, config, device=device)
+            self.frame_marks = []
+            made.append(self)
+
+        def process_frame_async(self, *args, **kw):
+            out = super().process_frame_async(*args, **kw)
+            self.frame_marks.append(time.perf_counter())
+            return out
+
+        def run_global_distributed_ba(self, *args, **kw):
+            self.global_stats = super().run_global_distributed_ba(*args, **kw)
+            return self.global_stats
+
+    argv = data_args + CONFIG5_ARGS + CONFIG_FLAGS[config] + ["--platform", platform]
+    buf, err = io.StringIO(), io.StringIO()
+    original = port_system.SlamSystem
+    port_system.SlamSystem = Recorded
+    if table is not None:
+        for k in table:
+            k["wrapper"].launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = cli_main(argv)
+    finally:
+        port_system.SlamSystem = original
+    if platform == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text, log = buf.getvalue(), err.getvalue()
+    m = re.search(r"ATE RMSE \(Sim3-aligned\): ([0-9.eE+naif-]+) m over (\d+)", text)
+    if rc != 0 or m is None or len(made) != 1:
+        raise AssertionError(f"config {config} on {platform}: exit {rc}, {text!r} {log[-3000:]!r}")
+    system = made[0]
+    out = {"ate": float(m.group(1)), "poses_in_ate": int(m.group(2)), "s": round(wall, 1),
+           "keyframe_poses_finite": all(np.isfinite(T).all() for T in system._kf_poses.values()),
+           "keyframe_poses_rigid": all(rigid_pose(T) for T in system._kf_poses.values()),
+           "keyframes": [s.frame_id for s in system.trajectory if s.is_keyframe],
+           "statuses": sorted({s.status for s in system.trajectory}),
+           "loop_stats": dict(system.loop_stats), "window_ba_runs": system.ba_stats["runs"]}
+    loop = LOOP_RE.search(log)
+    if config in (5, 6):
+        if loop is None:
+            raise AssertionError(f"config {config}: no loop-closure line in {log[-2000:]!r}")
+        out["loop_edges"] = int(loop.group(1))
+    if config in (5, 7):
+        d = DBA_RE.search(log)
+        if d is None:
+            raise AssertionError(f"config {config}: no global-BA line in {log[-2000:]!r}")
+        out["dist_ba"] = {"keyframes": int(d.group(1)), "landmarks": int(d.group(2)),
+                          "observations": int(d.group(3)), "shards": int(d.group(4)),
+                          "iterations": int(d.group(5)), "seconds": float(d.group(6)),
+                          "ba_iters_per_sec": float(d.group(7)),
+                          "cost": [float(d.group(8)), float(d.group(9))],
+                          "applied": d.group(10) is None}
+    marks = system.frame_marks
+    if len(marks) > LIVE_WARMUP + 2:
+        ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])][LIVE_WARMUP:]
+        out["frame_ms"] = {"median": statistics.median(ms), "p90": float(np.percentile(ms, 90)),
+                           "max": max(ms), "mean": statistics.mean(ms)}
+        out["frames_per_s"] = 1e3 / statistics.mean(ms)
+    ls = system.loop_stats
+    if ls["keyframes"]:
+        out["host_ms_per_keyframe"] = {
+            "loop_detection": 1e3 * ls["detect_s"] / ls["keyframes"],
+            "pgo": 1e3 * ls["pgo_s"] / ls["keyframes"],
+            "pgo_per_solve": 1e3 * ls["pgo_s"] / max(ls["pgo_runs"], 1)}
+    if table is not None:
+        out["launches"] = {k["name"]: k["wrapper"].launches for k in table}
+    out["_poses"] = system.export_trajectory()[1]
+    return out
+
+
+def start_cpu_config5(data_args, out: Path) -> subprocess.Popen:
+    """The port's CPU run of config 5 in a process of its own, so that it
+    runs while the card's runs do (`--cpu-config5`, below)."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-config5",
+                             str(out), *data_args])
+
+
+def cpu_config5(out: str, data_args) -> None:
+    """Body of the `--cpu-config5` process: config 5 on the CPU, window solves
+    retired at once as in phase 20(a)'s card runs, its result and exported
+    poses to `out` (.json and .npy)."""
+    torch.set_num_threads(CPU_RUN_THREADS)
+    r = run_loop_config(data_args, 5, "cpu", retire_at_once=True)
+    np.save(out + ".npy", r.pop("_poses"))
+    Path(out + ".json").write_text(json.dumps(r))
+
+
+def finish_cpu_config5(proc: subprocess.Popen, out: Path) -> dict:
+    try:
+        rc = proc.wait(timeout=CPU_RUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"the CPU run of config 5 exited {rc}")
+    r = json.loads(Path(str(out) + ".json").read_text())
+    r["_poses"] = np.load(str(out) + ".npy")
+    return r
+
+
+def health_checks(config: int, r: dict) -> None:
+    """eval.py:597-616's checks that apply to one config's run."""
+    if config in (5, 7):
+        d = r["dist_ba"]
+        if not d["observations"] >= DIST_BA_MIN_OBS:
+            raise AssertionError(f"config {config}: global BA on {d['observations']} "
+                                 f"observations (needs {DIST_BA_MIN_OBS})")
+        if not d["applied"]:
+            raise AssertionError(f"config {config}: global BA result not applied")
+    if config == 5 and not r["loop_edges"] > 0:
+        raise AssertionError("config 5: no loop-closure edge accepted on the revisit path")
+    if not np.isfinite(r["ate"]):
+        raise AssertionError(f"config {config}: ATE {r['ate']}")
+    # The export falls back to the live poses where a keyframe's is not
+    # finite, which would hide a map the global BA destroyed.
+    if not r["keyframe_poses_finite"]:
+        raise AssertionError(f"config {config}: keyframe poses not finite after the run")
+    if not r["keyframe_poses_rigid"]:
+        raise AssertionError(f"config {config}: a keyframe pose is off SO(3) by more than "
+                             f"{RIGID_ATOL} after the run")
+
+
+def rigid_pose(T) -> bool:
+    """A finite rigid motion: R^T R within RIGID_ATOL of I, last row 0 0 0 1.
+    Host-side products of corrections once drifted off SO(3) until a
+    keyframe pose was singular."""
+    T = np.asarray(T, np.float64)
+    return bool(np.isfinite(T).all()
+                and np.abs(T[:3, :3].T @ T[:3, :3] - np.eye(3)).max() <= RIGID_ATOL
+                and np.allclose(T[3], [0, 0, 0, 1], atol=RIGID_ATOL))
+
+
+def loop_pose_gap(a, b) -> float:
+    from uwslam_tpu_torch.lie import se3
+
+    return float((se3.log(torch.from_numpy(a)) - se3.log(torch.from_numpy(b))).abs().max())
+
+
+def dist_ba_problem(dev, seed: int = 1, num_kf: int = 4, num_lm: int = 96):
+    """tests/test_parallel.py's problem, drawn with numpy: 4 keyframes x 96
+    landmarks, every landmark in every keyframe, poses perturbed by 0.02 and
+    points by 0.05 -> (BAProblem, true T_cw)."""
+    from uwslam_tpu_torch.ba.schur import BAProblem
+    from uwslam_tpu_torch.camera import PinholeCamera
+    from uwslam_tpu_torch.lie import se3
+
+    cam = PinholeCamera(fx=300.0, fy=300.0, cx=159.5, cy=119.5, width=320, height=240)
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-1.5, 1.5, num_lm), rng.uniform(-1.0, 1.0, num_lm),
+                    rng.uniform(3.0, 6.0, num_lm)], -1).astype(np.float32)
+    T_gt = se3.exp(torch.tensor([[0.08 * i, 0.01 * i, 0.0, 0.0, 0.005 * i, 0.0]
+                                 for i in range(num_kf)], dtype=torch.float32))
+    kf = np.repeat(np.arange(num_kf), num_lm).astype(np.int32)
+    lm = np.tile(np.arange(num_lm), num_kf).astype(np.int32)
+    uv = cam.project(se3.apply(T_gt[kf], torch.from_numpy(pts)[lm]))
+    dT = 0.02 * rng.standard_normal((num_kf, 6)).astype(np.float32)
+    dT[0] = 0.0
+    T0 = se3.compose(se3.exp(torch.from_numpy(dT)), T_gt)
+    pts0 = pts + 0.05 * rng.standard_normal(pts.shape).astype(np.float32)
+    problem = BAProblem(T_cw=T0, points=torch.from_numpy(pts0), obs_kf=torch.from_numpy(kf),
+                        obs_lm=torch.from_numpy(lm), obs_uv=uv,
+                        obs_valid=torch.ones(kf.shape[0], dtype=torch.bool))
+    return BAProblem(*(x.to(dev) for x in problem)), T_gt.to(dev), cam
+
+
+def phase_dist_ba(dev) -> dict:
+    """The landmark-sharded solve with 8 shards against `ba.schur`'s
+    `bundle_adjust` on the card for the same problem: both within
+    DIST_TRUTH_ATOL of the true poses (tests/test_parallel.py's bound), two
+    sharded solves bit-equal, direct and pcg."""
+    from uwslam_tpu_torch.ba.schur import bundle_adjust
+    from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.parallel import distributed_bundle_adjust, landmark_layout, \
+        shard_problem
+
+    problem, T_gt, cam = dist_ba_problem(dev)
+
+    def err(T):
+        return float(se3.log(se3.compose(se3.inverse(T_gt), T)).norm(dim=-1).max())
+
+    single = bundle_adjust(problem, cam, max_iters=15, trim_px=None)
+    sharded = shard_problem(problem, 8)
+    out = {"single_pose_err": err(single.T_cw)}
+    for solver in ("direct", "pcg"):
+        first = distributed_bundle_adjust(sharded, cam, landmark_layout(8), max_iters=15,
+                                          solver=solver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second = distributed_bundle_adjust(sharded, cam, landmark_layout(8), max_iters=15,
+                                           solver=solver)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"two sharded {solver} solves differ")
+        out[solver] = {"pose_err": err(first.T_cw), "iterations": int(first.iterations),
+                       "cost": [float(first.initial_cost), float(first.cost)],
+                       "ms_per_solve": 1e3 * dt}
+        if not out[solver]["pose_err"] < DIST_TRUTH_ATOL:
+            raise AssertionError(f"sharded {solver} solve {out[solver]['pose_err']} from the truth")
+    if not out["single_pose_err"] < DIST_TRUTH_ATOL:
+        raise AssertionError(f"bundle_adjust {out['single_pose_err']} from the truth")
+    return out
+
+
+def strip_poses(r: dict) -> dict:
+    return {k: v for k, v in r.items() if k != "_poses"}
+
+
+def card_loop_configs(tmp, quick, dev, table) -> dict:
+    """Phase 20's runs on the card: (a) config 5 twice at the quick size with
+    the window solves retired at once, bit-equal; (b) configs 6 and 7 the
+    same way, under their health checks (config 5's ATE better than config
+    6's: eval.py's check that the global BA earns its place); (c) config 5 at
+    full size as the CLI runs it, its health checks, ATE bar and kernels;
+    (d) the sharded solve and the pose graph."""
+    a, again = (run_loop_config(quick, 5, "cuda", retire_at_once=True) for _ in range(2))
+    if not (np.array_equal(a["_poses"], again["_poses"])
+            and all(a[k] == again[k] for k in ("ate", "keyframes", "loop_edges"))
+            and all(a["dist_ba"][k] == again["dist_ba"][k]
+                    for k in ("landmarks", "observations", "iterations", "cost"))):
+        raise AssertionError("two card runs of config 5 differ")
+    health_checks(5, a)
+    out = {"a_card": a}
+    for config in (6, 7):
+        r = run_loop_config(quick, config, "cuda", retire_at_once=True)
+        health_checks(config, r)
+        out[f"b_quick_config{config}"] = strip_poses(r)
+    if not a["ate"] < out["b_quick_config6"]["ate"]:
+        raise AssertionError(f"config 5 ATE {a['ate']} not better than config 6's "
+                             f"{out['b_quick_config6']['ate']}")
+    full = write_tum_sequence(Path(tmp) / "full", FULL_FRAMES, FULL_LOOP_PERIOD, dev)
+    r = run_loop_config(full, 5, "cuda", table)
+    health_checks(5, r)
+    if not r["ate"] <= CONFIG5_ATE_MAX:
+        raise AssertionError(f"config 5 full size: ATE {r['ate']} m > {CONFIG5_ATE_MAX} m")
+    missing = [n for n in ("scharr", "lm_evaluate", "bilinear_sample") if not r["launches"][n]]
+    if missing:
+        raise AssertionError(f"kernels not launched on the config-5 path: {missing}")
+    out["c_full_config5"] = strip_poses(r)
+    out["d_dist_ba"] = phase_dist_ba(dev)
+    out["d_pose_graph"] = phase_pose_graph(dev)
+    return out
+
+
+def phase_pose_graph(dev) -> dict:
+    """A Sim(3) pose graph of the full run's size (128 nodes, 256 edges:
+    the buckets of 123 keyframes and their loop edges), solved eagerly and
+    with its LM pass as a captured graph (the loop closer's way): bit-equal
+    poses, cost and iterations; ms per solve of both."""
+    from uwslam_tpu_torch.ba import pose_graph as pg
+    from uwslam_tpu_torch.lie import sim3
+
+    M, E = 128, 256
+    rng = np.random.default_rng(0)
+    S = sim3.exp(torch.from_numpy((0.1 * rng.standard_normal((M, 7))).astype(np.float32)))
+    ei = torch.arange(E, dtype=torch.int32) % (M - 1)
+    ej = torch.where(torch.arange(E) < M - 1, ei + 1, torch.clamp(ei + 40, max=M - 1))
+    noise = sim3.exp(torch.from_numpy((0.01 * rng.standard_normal((E, 7))).astype(np.float32)))
+    S_ij = sim3.compose(sim3.compose(sim3.inverse(S[ei.long()]), S[ej.long()]), noise)
+    graph = pg.Sim3PoseGraph(*(x.to(dev) for x in (
+        S, ei, ej.to(torch.int32), S_ij, torch.full((E,), 100.0), torch.ones(E, dtype=torch.bool))))
+    captured: dict = {}
+    out = {}
+    for name, kw in (("eager", {}), ("graph_first", {"captured": captured}),
+                     ("graph", {"captured": captured})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pg.optimize_pose_graph_sim3(graph, **kw)
+        iters = int(res.iterations)
+        out[name] = {"ms": 1e3 * (time.perf_counter() - t0), "iterations": iters,
+                     "cost": [float(res.initial_cost), float(res.cost)]}
+        out[name + "_result"] = res
+    if not all(torch.equal(a, b) for a, b in zip(out.pop("eager_result"), out["graph_result"])):
+        raise AssertionError("the pose graph's captured pass differs from the eager one")
+    if not all(torch.equal(a, b) for a, b in zip(out.pop("graph_first_result"),
+                                                out.pop("graph_result"))):
+        raise AssertionError("two replays of the pose graph differ")
+    return out
+
+
+def phase_loop_configs(table) -> dict:
+    """Configs 5, 6 and 7 (phase 20): the card's runs while the port's CPU
+    run of config 5 at the quick size goes on in a process of its own; then
+    the card's run against the CPU's, reported (the comparisons config 2 is
+    held to do not hold on this path: see CONFIG5_ATE_RTOL)."""
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        quick = write_tum_sequence(Path(tmp) / "quick", QUICK_FRAMES, QUICK_LOOP_PERIOD, dev)
+        cpu_out = Path(tmp) / "cpu_config5"
+        cpu_proc = start_cpu_config5(quick, cpu_out)
+        try:
+            out = card_loop_configs(tmp, quick, dev, table)
+        except BaseException:
+            cpu_proc.kill()
+            cpu_proc.wait()
+            raise
+        c = finish_cpu_config5(cpu_proc, cpu_out)
+    health_checks(5, c)
+    a = out.pop("a_card")
+    for run, what in ((a, "card"), (c, "CPU")):
+        if not run["ate"] <= CONFIG5_ATE_MAX:
+            raise AssertionError(f"config 5 quick, {what}: ATE {run['ate']} m > {CONFIG5_ATE_MAX} m")
+    out["a_quick_config5"] = {
+        "card": strip_poses(a), "cpu": strip_poses(c),
+        "card_vs_cpu": {
+            "pose_gap": loop_pose_gap(a["_poses"], c["_poses"]),
+            "keyframes_equal": a["keyframes"] == c["keyframes"],
+            "loop_edges_equal": a["loop_edges"] == c["loop_edges"],
+            "dist_ba_counts_equal": all(a["dist_ba"][k] == c["dist_ba"][k]
+                                        for k in ("keyframes", "landmarks", "observations")),
+            "ate_within_15_percent": abs(a["ate"] - c["ate"]) <= CONFIG5_ATE_RTOL * c["ate"]}}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card is visible; nothing was run")
@@ -2354,6 +2839,10 @@ def main() -> None:
     photo, photo_times = phase_photo_ba(frames, poses, table)
     say("19 photometric window BA", json.dumps(photo) + "; per call: " + json.dumps(photo_times)
         + f"; {gpu}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    loops = phase_loop_configs(table)
+    say("20 configs 5-7 (loop closure, global BA)", json.dumps(loops) + f"; {gpu}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     live_k = live_times["kernels_at_live_shapes"]
     depth_launches = {k["name"]: sum(depth_paths[path]["launches"][k["name"]]
@@ -2370,6 +2859,7 @@ def main() -> None:
          "launches_bootstrap_pipelined": config2_pipe["launches"][k["name"]],
          "launches_window_ba": config4["launches"][k["name"]],
          "launches_photo_ba": photo["live"]["launches"][k["name"]],
+         "launches_config5": loops["c_full_config5"]["launches"][k["name"]],
          "max_abs_err": max(e[k["name"]] for e in (
              errs, errs_live, errs_seq, rectified["parity_max_abs_err"])),
          "ms": times[k["name"]]["device_ms"],
@@ -2415,4 +2905,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cpu-config5"]:
+        cpu_config5(sys.argv[2], sys.argv[3:])
+    else:
+        main()

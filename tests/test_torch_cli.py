@@ -291,3 +291,68 @@ def test_default_platform_needs_a_card(dataset, tmp_path, capsys, monkeypatch):
     assert port_main(_args(dataset, tmp_path / "t.txt")) != 0
     assert "CUDA" in capsys.readouterr().err
     assert not (tmp_path / "t.txt").exists()
+
+
+def _config_of(argv, monkeypatch):
+    """The SlamConfig the CLI builds for `argv` (construction stops there)."""
+    from uwslam_tpu_torch import system as port_system
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def capture(calib, config, device):
+        seen["config"] = config
+        raise Stop
+
+    monkeypatch.setattr(port_system, "SlamSystem", capture)
+    with pytest.raises(Stop):
+        port_main(argv)
+    return seen["config"]
+
+
+@pytest.mark.parametrize("flags,want", [
+    (("--loop-closure",), dict(use_loop_closure=True, global_ba=False, use_features=False,
+                               use_sim3=True)),
+    (("--loop-closure", "--loop-se3"), dict(use_loop_closure=True, use_sim3=False)),
+    (("--dist-ba", "--host-devices", "4"), dict(global_ba=True, use_features=True,
+                                                use_loop_closure=False)),
+], ids=["loop-closure", "loop-se3", "dist-ba"])
+def test_loop_and_dist_ba_flags_parse_as_the_jax_cli(dataset, tmp_path, monkeypatch, flags, want):
+    """`--dist-ba` implies the feature front end (JAX cli/main.py:369-372);
+    `--loop-se3` turns the pose graph to SE(3); `--host-devices` is parsed
+    as the global BA's shard count."""
+    config = _config_of(_args(dataset, tmp_path / "t.txt", "--platform", "cpu", *flags),
+                        monkeypatch)
+    got = dict(use_loop_closure=config.use_loop_closure, global_ba=config.global_ba,
+               use_features=config.use_features, use_sim3=config.loop.use_sim3)
+    assert {k: got[k] for k in want} == want
+    assert build_parser().parse_args(_args(dataset, tmp_path / "t.txt", *flags)).host_devices \
+        == (4 if "--host-devices" in flags else None)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--loop-closure",), ("--loop-closure", "--loop-se3", "--no-pipeline"),
+    ("--dist-ba", "--host-devices", "4"), ("--loop-closure", "--dist-ba", "--host-devices", "8"),
+], ids=["loop-closure", "loop-se3-synchronous", "dist-ba", "loop-closure-dist-ba"])
+def test_loop_and_dist_ba_flags_run_and_report_in_eval_format(dataset, tmp_path, capsys, flags):
+    """A tiny run of each flag: exit 0, the trajectory written, and the
+    stderr lines read by eval.py's own patterns (LOOP_RE, DBA_RE or
+    DBA_SKIP_RE), as it reads the JAX CLI's."""
+    import eval as jax_eval
+
+    argv = _args(dataset, tmp_path / "t.txt", "--platform", "cpu", "--kf-max-gap", "4", *flags)
+    assert port_main(argv) == 0
+    out = capsys.readouterr()
+    m = ATE.search(out.out)
+    assert m and float(m.group(1)) < 0.05 and int(m.group(2)) == 18
+    assert (tmp_path / "t.txt").exists()
+    if "--loop-closure" in flags:
+        assert jax_eval.LOOP_RE.search(out.err)
+    if "--dist-ba" in flags:
+        m = jax_eval.DBA_RE.search(out.err)
+        assert m or jax_eval.DBA_SKIP_RE.search(out.err), out.err[-2000:]
+        if m:
+            assert int(m.group(4)) == int(flags[flags.index("--host-devices") + 1])
+            assert int(m.group(5)) >= 1 and int(m.group(3)) >= 30

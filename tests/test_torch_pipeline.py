@@ -249,6 +249,26 @@ def test_live_correction_reaches_the_chain_and_frames_in_flight():
     np.testing.assert_allclose(sync._T_wc.numpy(), C @ before, atol=1e-6)
 
 
+def test_host_corrections_stay_rigid():
+    """Corrections composed on the host stay rigid motions. Each is a refined
+    pose times the transposed rotation of an earlier pose, and f32 products
+    drift off SO(3); fed back through the keyframe poses, unnormalized drift
+    compounds until a pose is singular (a 640-frame loop-closure run did
+    so). Here every correction is 0.2% off SO(3) on purpose."""
+    rng = np.random.default_rng(0)
+    pipe, sync = port_system(), port_system()
+    pipe._pipelined = True
+    for _ in range(300):
+        C = np.array(jse3.exp(jnp.asarray(0.01 * rng.standard_normal(6), jnp.float32)))
+        C[:3, :3] *= np.float32(1.002)
+        pipe._apply_live_correction(C)
+        sync._apply_live_correction(C)
+    for M in (pipe._corr_pending, pipe._corr_accum, sync._corr_accum, sync._T_wc.numpy()):
+        R = M[:3, :3]
+        assert np.abs(R.T @ R - np.eye(3)).max() < 1e-5
+        np.testing.assert_array_equal(M[3], [0, 0, 0, 1])
+
+
 class _ListSequence(Sequence):
     """A Sequence over arrays in memory."""
 

@@ -1,7 +1,7 @@
 """The port's live path (`SlamSystem.process_frame`, configuration 1: FC
 tracking, keyframes, relocalization) against the JAX package's on the
 sequences of tests/test_system.py and tests/test_reloc.py, and the
-package's boundaries: unported switches refuse loudly, the default device
+package's boundaries: the switches of configs 5-7 run, the default device
 is the card, and no module needs JAX.
 
 Tolerances: per-frame T_wc atol 1e-4 (f32 sums in another order), statuses,
@@ -163,11 +163,26 @@ def test_clean_sequence_never_lost():
         assert port.process_frame(_view([0.02 * i, 0, 0, 0, 0, 0])).status == "ok"
 
 
-@pytest.mark.parametrize("change", [dict(use_loop_closure=True), dict(global_ba=True)])
-def test_unported_switches_raise_naming_the_roadmap(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120), SlamConfig(**change),
-                   device="cpu")
+@pytest.mark.parametrize("change", [dict(use_loop_closure=True),
+                                    dict(global_ba=True, use_features=True)],
+                         ids=["loop-closure", "global-ba"])
+def test_loop_closure_and_global_ba_switches_run_on_the_cpu(change):
+    """Configs 5-7's switches construct and track the clean sequence: every
+    keyframe enters the loop closer's history (no loop on a straight path)
+    or the global-BA record, whose solve then runs over 8 shards."""
+    system = SlamSystem(Calibration(raw=CAM, out_width=160, out_height=120),
+                        SlamConfig(tracker=TrackerConfig(**TRACKER), **change), device="cpu")
+    states = [system.process_frame(_view([0.02 * i, 0.008 * i, 0, 0, 0, 0.002 * i]))
+              for i in range(8)]
+    assert all(s.status == "ok" and np.isfinite(s.T_wc).all() for s in states)
+    n_kf = sum(s.is_keyframe for s in states)
+    if change.get("use_loop_closure"):
+        assert len(system._loops.history) == n_kf and system._loops.loop_edges == []
+        assert system.loop_stats["keyframes"] == n_kf
+    else:
+        assert system._loops is None and len(system._kf_history) == n_kf
+        stats = system.run_global_distributed_ba(shards=8, max_iters=5, time_steady_state=False)
+        assert stats is None or (stats["shards"] == 8 and np.isfinite(stats["final_cost"]))
 
 
 @pytest.mark.parametrize("change", [

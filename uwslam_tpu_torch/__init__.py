@@ -1,7 +1,10 @@
 """uwslam_tpu_torch — the PyTorch and CUDA port of uwslam_tpu.
 
-The offline direct-odometry path (`tracking.SequenceTracker`, IC mode) with
-hand-written CUDA kernels for Hopper (`ops/`, sources in `csrc/`). The JAX
-package `uwslam_tpu` is the reference each module is tested against; this
-package never imports JAX.
+README configurations 1 to 7: offline odometry (`tracking`), the live
+system (`system.SlamSystem`: tracking, keyframes, relocalization, the
+feature front end and depth bootstrap, window bundle adjustment, loop
+closure, the global landmark-sharded BA of `parallel`) and the CLI
+(`cli.main`), with hand-written CUDA kernels for Hopper (`ops/`, sources in
+`csrc/`). The JAX package `uwslam_tpu` is the reference each module is
+tested against; this package never imports JAX.
 """

@@ -172,7 +172,7 @@ def build_normal_equations(
 
 
 def _mean_diag(X: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.diagonal(X, dim1=-2, dim2=-1).mean(-1), min=1e-6)[:, None, None]
+    return torch.clamp(torch.diagonal(X, dim1=-2, dim2=-1).mean(-1), min=1e-6)[..., None, None]
 
 
 def solve_schur(U, V, W, g_p, g_l, lam, fix_first_pose: bool = True,

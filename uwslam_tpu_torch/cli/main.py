@@ -17,7 +17,12 @@ keypoints; synchronous by the JAX package's own rule), `--depth-bootstrap`
 the depth prior (pipelined once the prior is installed), `--ba` reprojection
 window bundle adjustment, `--photo-ba` photometric window bundle adjustment
 (a synchronous solve at the keyframes it is due on), `--reference-mode`
-uw-slam's active pipeline.
+uw-slam's active pipeline, `--loop-closure` loop detection with a Sim(3)
+pose-graph correction (SE(3) with `--loop-se3`), `--dist-ba` the global
+landmark-sharded bundle adjustment of the whole keyframe map after the
+last frame, in `--host-devices` shards (the JAX package's device count;
+default 1). The stderr lines of loop closure and of the global BA have the
+JAX package's format, so `eval.py`'s patterns read them.
 Flags of later slices exit non-zero naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -28,14 +33,11 @@ import time
 
 # Flags whose slice is not ported: flag -> (what, ROADMAP slice and item).
 UNPORTED_FLAGS = {
-    "loop_closure": ("--loop-closure", "slice 7, item 17"),
-    "dist_ba": ("--dist-ba (global distributed BA)", "slice 7, item 17"),
     "viz_port": ("--viz-port (live view)", "slice 8, item 18"),
     "map_out": ("--map-out (PLY map export)", "slice 8, item 18"),
     "checkpoint": ("--checkpoint (session checkpoints)", "slice 8, item 18"),
     "resume": ("--resume (session checkpoints)", "slice 8, item 18"),
     "trace": ("--trace (device trace capture)", "slice 8, item 18"),
-    "host_devices": ("--host-devices (multi-device runs)", "slice 7, item 17"),
 }
 
 
@@ -73,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loop-closure", action="store_true",
                    help="loop detection + pose-graph correction")
     p.add_argument("--dist-ba", action="store_true",
-                   help="end-of-run global distributed bundle adjustment")
+                   help="end-of-run global distributed bundle adjustment over the "
+                        "whole keyframe map (implies --features)")
     p.add_argument("--mono-depth", type=float, default=1.0,
                    help="assumed scene depth for pure-mono tracking")
     p.add_argument("--reference-mode", action="store_true",
@@ -133,7 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--platform", default="cuda", choices=("cpu", "cuda"),
                    help="torch device to run on (default cuda; no fallback)")
     p.add_argument("--host-devices", type=int, default=None,
-                   help="number of virtual host devices (multi-device runs)")
+                   help="landmark shards of the global BA in this process (the "
+                        "JAX package's virtual host devices; default 1)")
     return p
 
 
@@ -162,6 +166,20 @@ def _report_ate(ts, poses, args) -> None:
         print(f"ATE RMSE (Sim3-aligned): {rmse:.4f} m over {len(ia)} poses")
     else:
         print("WARNING: too few associated gt poses for ATE", file=sys.stderr)
+
+
+def report_global_ba(stats: dict | None) -> None:
+    """The global BA's stderr line, in the JAX CLI's format (its "devices"
+    are the port's landmark shards)."""
+    if stats is None:
+        print("dist BA: map too small, skipped", file=sys.stderr)
+        return
+    print(f"dist BA: {stats['keyframes']} kfs, {stats['landmarks']} landmarks, "
+          f"{stats['observations']} obs over {stats['shards']} devices: "
+          f"{stats['iterations']} iters in {stats['seconds']:.3f}s "
+          f"({stats['ba_iters_per_sec']:.1f} iters/s), cost "
+          f"{stats['initial_cost']:.3f} -> {stats['final_cost']:.3f}"
+          + ("" if stats["applied"] else " (not applied)"), file=sys.stderr)
 
 
 def run_offline(args, system, config, seq) -> int:
@@ -280,8 +298,10 @@ def main(argv=None) -> int:
         ),
         features=FeatureConfig(per_level=args.kp_per_level),
         keyframes=KeyframeConfig(min_gap=args.kf_min_gap, max_gap=args.kf_max_gap),
-        use_features=args.features or args.depth_bootstrap,
+        use_features=args.features or args.depth_bootstrap or args.dist_ba,
         use_ba=args.ba or args.photo_ba,
+        use_loop_closure=args.loop_closure,
+        global_ba=args.dist_ba,
         profile=args.profile,
         trajectory_csv=args.trajectory_out,
     )
@@ -289,6 +309,8 @@ def main(argv=None) -> int:
         config = replace(config, ba=replace(config.ba, photometric=True))
     if args.ba_prior_weight is not None:
         config = replace(config, ba=replace(config.ba, pose_prior_weight=args.ba_prior_weight))
+    if args.loop_se3:
+        config = replace(config, loop=replace(config.loop, use_sim3=False))
     if args.reference_mode:
         # uw-slam's active pipeline (src/System.cpp:193-223, src/Tracker.cpp:
         # 632-872): features -> <= 200 matched keypoints -> patch points, 10
@@ -302,11 +324,7 @@ def main(argv=None) -> int:
             ),
             use_features=True, use_ba=False, use_reloc=False,
         )
-    try:
-        system = SlamSystem(calib, config, device=device)
-    except NotImplementedError as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
+    system = SlamSystem(calib, config, device=device)
     if args.euroc:
         seq = open_euroc(args.directory, start=args.start)
     elif args.depth:
@@ -360,6 +378,10 @@ def main(argv=None) -> int:
         bs = system.ba_stats
         print(f"window BA: {bs['iters']} LM iters over {bs['runs']} runs, "
               f"{bs['time']:.2f}s of host time", file=sys.stderr)
+    if args.loop_closure and system._loops is not None:
+        print(f"loop closure: {len(system._loops.loop_edges)} edges accepted", file=sys.stderr)
+    if args.dist_ba:
+        report_global_ba(system.run_global_distributed_ba(shards=args.host_devices or 1))
     if args.profile:
         print(system.timers.report(), file=sys.stderr)
     ts, poses = system.export_trajectory(args.trajectory_out)

@@ -10,9 +10,8 @@ and iteration cap (src/Tracker.cpp:508,688); ratio 0.65
 depth factor 0.0002 (src/Tracker.cpp:1223); <= 200 keypoints per frame
 (src/Tracker.cpp:1190).
 
-Switches whose slice is not ported yet (`use_features`, `use_ba`,
-`use_loop_closure`, `global_ba`, `depth_bootstrap`) are accepted here and
-refused by `SlamSystem`, which names the ROADMAP item.
+`unported` is the error of a flag or input whose slice is not ported yet
+(the CLI's session tooling).
 """
 from __future__ import annotations
 

@@ -12,13 +12,15 @@ import numpy as np
 import torch
 
 from .ba.photometric import PhotoBAProblem
+from .ba.pose_graph import PoseGraph, Sim3PoseGraph
 from .ba.schur import BAProblem
 from .camera.model import PinholeCamera
 from .features.detect import Keypoints
 from .image.pyramid import FramePyramid
+from .map.loop_closure import KeyframeRecord, LoopEdge
 from .tracking.depth_prior import DepthPrior
 from .tracking.points import TrackPoints
-from .utils.synthetic import Texture
+from .utils.synthetic import FractalTexture, Texture
 
 
 def _tensor(x, device, dtype=np.float32) -> torch.Tensor:
@@ -84,6 +86,17 @@ def texture_from_numpy(freqs, phases, amps) -> Texture:
     )
 
 
+def fractal_texture_from_numpy(freqs, phases, amps, octaves: int) -> FractalTexture:
+    """Sinusoid coefficients (4 octaves, 2), (4 octaves,), (4 octaves,) of a
+    broadband texture, octave by octave, amplitudes with their 0.55^o."""
+    return FractalTexture(
+        freqs=np.asarray(freqs, np.float32).reshape(-1, 2),
+        phases=np.asarray(phases, np.float32).reshape(-1),
+        amps=np.asarray(amps, np.float32).reshape(-1),
+        octaves=int(octaves),
+    )
+
+
 def ba_problem_from_numpy(problem, device) -> BAProblem:
     """From an object with the fields of `uwslam_tpu.ba.BAProblem`; the index
     fields become int64 (what tensor indexing takes)."""
@@ -122,3 +135,30 @@ def keypoints_from_numpy(kps, device) -> Keypoints:
                    dtype={"valid": bool, "level": np.int32}.get(f, np.float32))
         for f in Keypoints._fields
     })
+
+
+def pose_graph_from_numpy(graph, device, sim3: bool = False):
+    """From an object with the fields of `uwslam_tpu.ba.PoseGraph` (or, with
+    `sim3`, of `uwslam_tpu.ba.Sim3PoseGraph`), in their order: poses, edge
+    i and j, measurements, weights, valid."""
+    dtypes = (np.float32, np.int32, np.int32, np.float32, np.float32, bool)
+    cls = Sim3PoseGraph if sim3 else PoseGraph
+    return cls(*(_tensor(x, device, dtype=d) for x, d in zip(graph, dtypes)))
+
+
+def keyframe_records_from_numpy(records, device) -> list[KeyframeRecord]:
+    """From objects with the fields of `uwslam_tpu.map.loop_closure.
+    KeyframeRecord`: the keypoint fields on `device`, pose and global
+    descriptor on the host."""
+    return [KeyframeRecord(
+        frame_id=int(r.frame_id), T_wc=np.array(r.T_wc, np.float32),
+        kp_uv=_tensor(r.kp_uv, device), kp_desc=_tensor(r.kp_desc, device),
+        kp_valid=_tensor(r.kp_valid, device, dtype=bool), kp_p3d=_tensor(r.kp_p3d, device),
+        global_desc=np.array(r.global_desc, np.float32),
+    ) for r in records]
+
+
+def loop_edge_from_numpy(edge) -> LoopEdge:
+    """From an object with the fields of `uwslam_tpu.map.loop_closure.LoopEdge`."""
+    return LoopEdge(i=int(edge.i), j=int(edge.j), T_ij=np.array(edge.T_ij, np.float32),
+                    num_inliers=int(edge.num_inliers), scale=float(edge.scale))

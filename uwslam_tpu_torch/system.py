@@ -1,6 +1,6 @@
 """SlamSystem: the live per-frame pipeline.
 
-Counterpart of `uwslam_tpu.system.SlamSystem` for README configs 1 to 4:
+Counterpart of `uwslam_tpu.system.SlamSystem` for README configs 1 to 7:
 monocular or RGB-D frames, rectified when the calibration has lens
 distortion (else cropped to a multiple of 2^(levels-1)), photometric
 tracking (FC by default) with a constant-velocity prior on semi-dense or
@@ -14,8 +14,11 @@ bootstrapped from an essential matrix and refreshed every frame; with
 `use_ba` bundle adjustment over the keyframe window: reprojection BA on
 feature tracks, the keyframes' match and the solve dispatched at a keyframe
 and retired a few frames later, or with `ba.photometric` photometric BA on
-the keyframes' pyramids, solved at the keyframe. Loop closure and global BA
-raise NotImplementedError naming the ROADMAP item that will port them.
+the keyframes' pyramids, solved at the keyframe; with `use_loop_closure`
+loop detection at every keyframe and a pose-graph correction of the whole
+keyframe history (`map.loop_closure`); with `global_ba` a record of every
+keyframe for `run_global_distributed_ba`, the landmark-sharded bundle
+adjustment of the whole map at the end of a run (`parallel.dist_ba`).
 
 Two entry points run the same stages. `process_frame` is synchronous: ingest
 (upload, rectify, crop, pyramid with kernel K1), tracking (kernels K3 and
@@ -34,7 +37,8 @@ from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -47,7 +51,7 @@ from .camera.model import (
     remap_bilinear,
     undistort_map,
 )
-from .config import SlamConfig, unported
+from .config import SlamConfig
 from .ba.photometric import (
     PhotoBAProblem,
     photo_ba_problem_from_keyframes,
@@ -70,6 +74,7 @@ from .image.pyramid import FramePyramid, build_pyramid
 from .io.trajectory import write_trajectory_tum
 from .lie import se3
 from .map.keyframes import Keyframe, KeyframeDecision, KeyframeStore
+from .map.loop_closure import LoopCloser, LoopConfig
 from .map.tracks import TrackGraph
 from .ops.graph import CapturedStep, tree_clone
 from .tracking.depth_prior import (
@@ -89,6 +94,9 @@ from .tracking.robust import masked_median
 from .utils.profiling import StageTimer
 
 PNP_HYPOTHESES = 128
+# A host-side pose whose R^T R is farther than this from I is re-orthonormalized
+# (`SlamSystem._np_normalize_se3`); f32 products of rigid motions stay within it.
+HOST_DRIFT_ATOL = 1e-6
 
 
 @dataclass
@@ -106,16 +114,6 @@ class FrameState:
     ref_kf_id: int = -1
     T_kf_frame: np.ndarray | None = None   # ref-kf <- frame
     status: str = "ok"        # "ok" | "lost" | "relocalized"
-
-
-def _refuse_unported(config: SlamConfig) -> None:
-    checks = (
-        (config.use_loop_closure, "use_loop_closure", "slice 7, item 17"),
-        (config.global_ba, "global_ba (global distributed BA)", "slice 7, item 17"),
-    )
-    for is_set, what, item in checks:
-        if is_set:
-            raise unported(what, item)
 
 
 def _gated(grid: DepthPrior, support: torch.Tensor, min_support: int) -> DepthPrior:
@@ -198,7 +196,6 @@ class SlamSystem:
         device: str | torch.device = "cuda",
     ):
         self.config = config or SlamConfig()
-        _refuse_unported(self.config)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -258,6 +255,17 @@ class SlamSystem:
         self._kp_depth = None       # triangulated depth per keypoint slot
         self._desc_proj = None      # descriptor projection on the device
         self._tracks = TrackGraph() # feature tracks across keyframes (BA)
+        self._loops = None          # LoopCloser, with use_loop_closure
+        if self.config.use_loop_closure:
+            self._loops = LoopCloser(cam=self.cam, config=LoopConfig(**asdict(self.config.loop)),
+                                     device=self.device)
+        # Host seconds of loop closure at keyframes: detection (retrieval and
+        # verification) and the pose-graph solves.
+        self.loop_stats = {"keyframes": 0, "detect_s": 0.0, "pgo_runs": 0, "pgo_s": 0.0}
+        # Every keyframe's features, for the global BA at the end of a run
+        # (global_ba): (frame_id, kp_uv, kp_desc, kp_valid, kp_p3d), on the
+        # device; the sliding window forgets them.
+        self._kf_history: list[tuple] = []
         self._kf_since_ba = 0
         # Window BA: LM iterations, the host's time (dispatch and any wait)
         # and the solves retired.
@@ -385,12 +393,15 @@ class SlamSystem:
             return u.pin_memory().to(self.device, non_blocking=True)
         return u
 
-    def _match_features(self, kp_a_uv, desc_a, valid_a, kp_b_uv, desc_b, valid_b, uniforms):
-        """Ratio-tested mutual matches of two keypoint sets, verified by
-        F-RANSAC -> (uv_a, uv_b, good, idx_a, idx_b), all of capacity K_a.
-        Nothing is read on the host."""
+    def _match_features(self, kp_a_uv, desc_a, valid_a, kp_b_uv, desc_b, valid_b, uniforms,
+                        ratio: float | None = None):
+        """Ratio-tested mutual matches of two keypoint sets (the configured
+        ratio unless `ratio` is given), verified by F-RANSAC -> (uv_a, uv_b,
+        good, idx_a, idx_b), all of capacity K_a. Nothing is read on the
+        host."""
         fcfg = self.config.features
-        m = match_descriptors(desc_a, desc_b, valid_a, valid_b, ratio=fcfg.ratio)
+        m = match_descriptors(desc_a, desc_b, valid_a, valid_b,
+                              ratio=fcfg.ratio if ratio is None else ratio)
         uv_a, uv_b = kp_a_uv[m.idx_a], kp_b_uv[m.idx_b]
         res = fundamental_ransac(uv_a, uv_b, m.valid, uniforms,
                                  threshold=fcfg.ransac_threshold_px,
@@ -642,9 +653,45 @@ class SlamSystem:
         return kf
 
     def _on_new_keyframe(self, kf) -> None:
-        """Keyframe hook of loop closure and global BA; `__init__` refuses
-        both, so nothing happens. A pose correction they compute goes
-        through `_apply_live_correction`, as window BA's does."""
+        """A new keyframe's hooks, by the JAX package's rule. With `global_ba`
+        its features are kept for the end-of-run global BA. With loop
+        closure: window BA in flight is retired first (a keyframe match, the
+        solve it dispatches and a solve in flight: the pose graph must see
+        the refined poses, or their write-back would rightly be skipped), the
+        keyframe is recorded, a loop is sought for it, and on success the
+        pose graph's correction is written to the keyframe poses and the
+        window, and the newest keyframe's correction reaches the live pose
+        through `_apply_live_correction` (in the pipelined loop: the chain
+        head at the next dispatch, the frames in flight at their retirement,
+        each once)."""
+        if self.config.global_ba and kf.kp_desc is not None:
+            self._kf_history.append((kf.frame_id, kf.kp_uv, kf.kp_desc, kf.kp_valid, kf.kp_p3d))
+        if self._loops is None or kf.kp_desc is None:
+            return
+        self._retire_window_ba(wait=True)
+        t0 = time.perf_counter()
+        self._loops.add_keyframe(kf)
+        edge = self._loops.detect()
+        t1 = time.perf_counter()
+        self.loop_stats["keyframes"] += 1
+        self.loop_stats["detect_s"] += t1 - t0
+        if edge is None:
+            return
+        corrected = self._loops.optimize()
+        self.loop_stats["pgo_runs"] += 1
+        self.loop_stats["pgo_s"] += time.perf_counter() - t1
+        if not corrected or not all(np.isfinite(T).all() for T in corrected.values()):
+            return
+        self._kf_poses.update((fid, np.array(T, np.float32)) for fid, T in corrected.items())
+        kfs = self.keyframes.keyframes
+        last_old = kfs[-1].T_wc.cpu().numpy()
+        for i, k in enumerate(kfs):
+            Tn = corrected.get(k.frame_id)
+            if Tn is not None:
+                kfs[i] = k._replace(T_wc=torch.from_numpy(np.array(Tn, np.float32)).to(self.device))
+        last_new = corrected.get(kfs[-1].frame_id)
+        if last_new is not None:
+            self._apply_live_correction(last_new @ self._np_inv_se3(last_old))
 
     def _relocalize(self, pyr, cur_feats=None):
         """PnP against the newest keyframes, newest first. Returns
@@ -845,22 +892,22 @@ class SlamSystem:
         """Register a left-multiplied pose correction for the pipelined
         chain: it reaches the device-side pose at the next dispatch, and the
         retirement of frames dispatched before it applies it to their
-        diagnostics poses on the host. Window bundle adjustment produces
-        such corrections (loop closure will)."""
-        C = np.asarray(C, np.float32)
-        self._corr_pending = C @ self._corr_pending
-        self._corr_accum = C @ self._corr_accum
+        diagnostics poses on the host. Window bundle adjustment and loop
+        closure produce such corrections."""
+        C = self._np_normalize_se3(C)
+        self._corr_pending = self._np_normalize_se3(C @ self._corr_pending)
+        self._corr_accum = self._np_normalize_se3(C @ self._corr_accum)
 
     def _apply_live_correction(self, correction) -> None:
         """Route a correction of the live pose: directly on the synchronous
         path; through the pending correction while frames are in flight (the
         chain head is already past the frame being retired, and touching
         `_T_wc` too would apply it twice). Either way `_corr_accum` records it."""
-        C = np.array(correction, np.float32)
+        C = self._np_normalize_se3(correction)
         if self._pipelined:
             self._push_correction(C)
         else:
-            self._corr_accum = C @ self._corr_accum
+            self._corr_accum = self._np_normalize_se3(C @ self._corr_accum)
             self._T_wc = se3.normalize(
                 se3.compose(torch.from_numpy(C).to(self.device), self._T_wc)
             )
@@ -871,6 +918,31 @@ class SlamSystem:
         out = np.eye(4, dtype=np.float32)
         out[:3, :3] = R.T
         out[:3, 3] = -R.T @ T[:3, 3]
+        return out
+
+    @staticmethod
+    def _np_normalize_se3(T) -> np.ndarray:
+        """Host-side `se3.normalize` for a pose whose rotation block has
+        drifted more than HOST_DRIFT_ATOL (the largest entry of R^T R - I)
+        off SO(3): the same Frobenius de-scaling and two Newton steps. A pose
+        within it passes unchanged, bit for bit as the JAX package composes
+        it. Corrections and the poses they move are composed on the host in
+        f32; unnormalized, their rotations drift, a keyframe pose that
+        drifted makes the next correction (refined pose times the transposed
+        rotation of the old one) drift further, and within a few hundred
+        frames a pose is singular."""
+        T = np.asarray(T, np.float32)
+        R = T[:3, :3]
+        R64 = R.astype(np.float64)
+        if np.abs(R64.T @ R64 - np.eye(3)).max() <= HOST_DRIFT_ATOL:
+            return T
+        R = R / np.float32(max(float(np.sqrt(np.sum(R * R) / 3.0)), 1e-12))
+        eye = np.eye(3, dtype=np.float32)
+        for _ in range(2):
+            R = R @ (np.float32(1.5) * eye - np.float32(0.5) * (R.T @ R))
+        out = np.eye(4, dtype=np.float32)
+        out[:3, :3] = R
+        out[:3, 3] = T[:3, 3]
         return out
 
     @staticmethod
@@ -1140,7 +1212,7 @@ class SlamSystem:
         # pose retroactively (they reached the device chain later).
         delta = rec["corr_at_dispatch"]
         if not np.allclose(self._corr_accum, delta):
-            T_wc_np = self._corr_accum @ self._np_inv_se3(delta) @ T_wc_np
+            T_wc_np = self._np_normalize_se3(self._corr_accum @ self._np_inv_se3(delta) @ T_wc_np)
         ratio = inliers / max(capacity, 1)
 
         if self._is_lost(inliers, capacity, track_error, pose_finite, T_wc_np):
@@ -1265,11 +1337,11 @@ class SlamSystem:
             self._retire_keyframe_match(wait=True)
 
     def _keyframe_match_table(self, kp_uv_a, desc_a, valid_a, kp_uv_b, desc_b, valid_b,
-                              uniforms) -> torch.Tensor:
+                              uniforms, ratio: float | None = None) -> torch.Tensor:
         """Two keyframes' verified matches as one (K_a, 7) table: idx_a,
         idx_b, uv_a, uv_b, good."""
         uv_a, uv_b, good, idx_a, idx_b = self._match_features(
-            kp_uv_a, desc_a, valid_a, kp_uv_b, desc_b, valid_b, uniforms)
+            kp_uv_a, desc_a, valid_a, kp_uv_b, desc_b, valid_b, uniforms, ratio)
         return torch.cat([idx_a[:, None].float(), idx_b[:, None].float(), uv_a, uv_b,
                           good[:, None].float()], dim=-1)
 
@@ -1520,6 +1592,10 @@ class SlamSystem:
             Tn = updated.get(k.frame_id)
             if Tn is not None:
                 kfs[i] = k._replace(T_wc=torch.from_numpy(Tn.copy()).to(self.device))
+        if self._loops is not None and updated:
+            # The loop closer's history takes the refinement, or its next
+            # pose graph would revert it.
+            self._loops.update_poses(updated)
         last_fid = kf_ids[-1]
         if last_fid in updated:
             self._apply_live_correction(updated[last_fid] @ self._np_inv_se3(snap[last_fid]))
@@ -1598,9 +1674,160 @@ class SlamSystem:
         for i, k in enumerate(kfs):
             kfs[i] = k._replace(T_wc=torch.from_numpy(T_new_wc[i].copy()).to(self.device))
             self._kf_poses[k.frame_id] = T_new_wc[i].copy()
-        # Loop closure's pose store takes these poses too once it is ported
-        # (ROADMAP item 17c: `_loops.update_poses`).
+        if self._loops is not None:
+            self._loops.update_poses({k.frame_id: T_new_wc[i] for i, k in enumerate(kfs)})
         self._apply_live_correction(T_new_wc[-1] @ self._np_inv_se3(last_old))
+
+    # ------------------------------------------------- global distributed BA
+
+    @staticmethod
+    def _np_inv_se3_batch(Ts: np.ndarray) -> np.ndarray:
+        """(N, 4, 4) SE(3) inverses on the host."""
+        Ts = np.asarray(Ts, np.float32)
+        R = Ts[:, :3, :3]
+        out = np.tile(np.eye(4, dtype=np.float32), (Ts.shape[0], 1, 1))
+        out[:, :3, :3] = R.transpose(0, 2, 1)
+        out[:, :3, 3] = -np.einsum("nji,nj->ni", R, Ts[:, :3, 3])
+        return out
+
+    def _global_pairs(self) -> list[tuple[int, int]]:
+        """The keyframe pairs (history indices) the global map is matched
+        on, in the JAX package's order: each keyframe against its five
+        predecessors (skip pairs extend tracks where a keypoint was missed
+        and add wide-baseline views), then each accepted loop edge's pair
+        and its neighbours (tracks joining the two passes of a revisit)."""
+        hist = self._kf_history
+        pairs = [(ia, ib) for ib in range(1, len(hist)) for ia in range(max(0, ib - 5), ib)]
+        if self._loops is not None and self._loops.loop_edges:
+            by_fid = {int(h[0]): i for i, h in enumerate(hist)}
+            lh = self._loops.history
+            for e in self._loops.loop_edges:
+                ia, ib = by_fid.get(int(lh[e.i].frame_id)), by_fid.get(int(lh[e.j].frame_id))
+                if ia is None or ib is None:
+                    continue
+                pairs += [(ia + da, ib + db) for da in (0, 1) for db in (-1, 0)
+                          if 0 <= ia + da < ib + db < len(hist)]
+        return pairs
+
+    def _global_match_tables(self, pairs) -> np.ndarray:
+        """Every pair's match table (`_keyframe_match_table`) -> (P, K_a, 7)
+        on the host. On a CUDA device each pair is one replay of a captured
+        graph (a pair issued eagerly is thousands of launches), its table
+        copied into one device buffer, which is read once at the end.
+        RANSAC's uniforms per pair are seeded with fa * 100003 + fb, the
+        frame ids of the pair."""
+        hist = self._kf_history
+        # Keyframes lie 5 to 20 frames apart, where the consecutive-frame
+        # ratio test starves the pairs: the ratio is 0.15 wider (at most
+        # 0.8); F-RANSAC right after keeps the precision.
+        match = partial(self._keyframe_match_table,
+                        ratio=min(0.8, self.config.features.ratio + 0.15))
+        tables = None
+        for p, (ia, ib) in enumerate(pairs):
+            a, b = hist[ia], hist[ib]
+            inputs = (a[1], a[2], a[3], b[1], b[2], b[3],
+                      self._ransac_uniforms(a[2].shape[0], int(a[0]) * 100003 + int(b[0])))
+            if self.device.type == "cpu":
+                table = match(*inputs)
+            else:
+                key = ("global-match", a[2].shape[0], b[2].shape[0])
+                if key not in self._steps:
+                    self._steps[key] = CapturedStep(match, inputs)
+                table = self._steps[key](*inputs)
+            if tables is None:
+                tables = torch.empty((len(pairs), *table.shape), dtype=table.dtype,
+                                     device=table.device)
+            tables[p].copy_(table)
+        return tables.cpu().numpy()
+
+    def run_global_distributed_ba(self, shards: int = 1, max_iters: int = 40,
+                                  time_steady_state: bool = True) -> dict | None:
+        """Global bundle adjustment over the whole keyframe map (README config
+        5), after the live loop: feature tracks rebuilt across the keyframe
+        history (`_global_pairs`), landmarks seeded from each keyframe's
+        camera-frame keypoint 3D (the depth prior), the problem partitioned
+        into `shards` landmark shards per process (`parallel.shard_problem`;
+        the JAX package's device count) and solved by the landmark-sharded
+        Schur LM (`parallel.distributed_bundle_adjust`), two poses fixed
+        (monocular: the frame and the scale). Refined keyframe poses flow
+        into the exported trajectory when the cost did not rise.
+
+        Returns stats (keyframes, landmarks, observations, shards, iterations,
+        seconds, ba_iters_per_sec, initial and final cost, applied) or None
+        when the map is too small. `time_steady_state` solves twice from the
+        same state and times the second (the first pays the first calls'
+        set-up), as the JAX package does. Needs `global_ba` and the feature
+        front end."""
+        from .parallel import distributed_bundle_adjust, landmark_layout, shard_problem
+
+        self._retire_window_ba(wait=True)
+        hist = self._kf_history
+        if len(hist) < 4:
+            return None
+        graph = TrackGraph(max_tracks=4 * self.config.ba.landmark_capacity)
+        min_matches = self.config.features.min_matches
+        pairs = self._global_pairs()
+        for (ia, ib), table in zip(pairs, self._global_match_tables(pairs)):
+            good = table[:, 6] > 0.5
+            if int(good.sum()) < min_matches:
+                continue
+            graph.add_keyframe_matches(
+                int(hist[ia][0]), int(hist[ib][0]), table[:, 0].astype(np.int64),
+                table[:, 1].astype(np.int64), table[:, 2:4], table[:, 4:6], good)
+        kf_ids = [int(h[0]) for h in hist]
+        T_cw = self._np_inv_se3_batch(np.stack([self._kf_poses[i] for i in kf_ids]))
+        seed_p3d = {int(h[0]): (h[4].cpu().numpy(), h[3].cpu().numpy())
+                    for h in hist if h[4] is not None}
+        built = graph.build_problem(
+            kf_ids, T_cw, self.cam,
+            max_landmarks=self.config.ba.landmark_capacity, max_obs=self.config.ba.obs_capacity,
+            # Global-map gates: two-view tracks count, and each observation
+            # is judged alone at a drift-sized 30 px (odometry drift is what
+            # this solve removes; Huber bounds what gets through).
+            min_views=2, obs_gate_px=30.0, seed_p3d=seed_p3d or None, device=self.device,
+        )
+        if built is None:
+            return None
+        problem, lm_order = built
+        n_obs = int(problem.obs_valid.sum())
+        if n_obs < 30:
+            return None   # too few sane observations to steer a global BA
+        layout = landmark_layout(shards)
+        sharded = shard_problem(problem, layout.total)
+        bcfg = self.config.ba
+
+        def run():
+            t0 = time.perf_counter()
+            out = distributed_bundle_adjust(
+                sharded, self.cam, layout, max_iters=max_iters,
+                huber_delta=bcfg.huber_delta_px, num_fixed_poses=2,
+                pose_prior_weight=bcfg.global_pose_prior_weight,
+            )
+            row = torch.stack([out.iterations.float(), out.initial_cost, out.cost]).tolist()
+            return out, row, time.perf_counter() - t0
+
+        out, row, dt = run()
+        if time_steady_state:
+            out, row, dt = run()
+        iters, c0, c = int(row[0]), row[1], row[2]
+        stats = {
+            "keyframes": len(kf_ids), "landmarks": len(lm_order), "observations": n_obs,
+            "shards": layout.total, "iterations": iters, "seconds": dt,
+            "ba_iters_per_sec": iters / max(dt, 1e-9), "initial_cost": c0, "final_cost": c,
+        }
+        T_wc_all = self._np_inv_se3_batch(out.T_cw.cpu().numpy())
+        # Never apply a non-finite pose (as loop closure's correction).
+        applied = bool(np.isfinite(c) and c <= c0 and np.isfinite(T_wc_all).all())
+        if applied:
+            for i, fid in enumerate(kf_ids):
+                self._kf_poses[fid] = T_wc_all[i]
+            kfs = self.keyframes.keyframes
+            for i, k in enumerate(kfs):
+                Tn = self._kf_poses.get(k.frame_id)
+                if Tn is not None:
+                    kfs[i] = k._replace(T_wc=torch.from_numpy(Tn.copy()).to(self.device))
+        stats["applied"] = applied
+        return stats
 
     # ------------------------------------------------------------ export
 

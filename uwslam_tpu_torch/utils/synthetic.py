@@ -1,15 +1,17 @@
 """Synthetic textured-plane views with exact ground truth, in PyTorch.
 
-Counterpart of `smooth_texture`, `render_plane_view`,
+Counterpart of `smooth_texture`, `fractal_texture`, `render_plane_view`,
 `render_plane_view_distorted`, `plane_depth`, the two-depth scene
-(`render_two_plane_view`, `two_plane_depth`) and the multi-plane scene
+(`render_two_plane_view`, `two_plane_depth`), the multi-plane scene
 (`PlaneSpec`, `make_plane`, `default_scene`, `render_scene_view`,
-`scene_depth`) in `uwslam_tpu.utils.synthetic`. The JAX package draws the texture's
-sinusoid coefficients from `jax.random` with a seed; the port carries the
-seed-0 coefficients (the benchmark scene) as literals, so both packages
-render the same scene. `tests/test_torch_synthetic.py` checks the literals
-against `jax.random`. The four textures of the multi-plane scene are
-literals too (`_scene_textures`, keyed by seed and detail).
+`scene_depth`) and `apply_photometric` in `uwslam_tpu.utils.synthetic`. The
+JAX package draws the texture's sinusoid coefficients from `jax.random`
+with a seed; the port carries the seed-0 coefficients (the benchmark scene)
+as literals, so both packages render the same scene.
+`tests/test_torch_synthetic.py` checks the literals against `jax.random`.
+The textures of the multi-plane scenes are literals too (`_scene_textures`:
+the smooth ones keyed by seed and detail, the broadband ones of the
+evaluation's scene by seed, detail and octaves).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 
 from ..camera.model import PinholeCamera
 from ..lie import se3
-from ._scene_textures import COEFFICIENTS
+from ._scene_textures import COEFFICIENTS, FRACTAL_COEFFICIENTS
 
 
 class Texture(NamedTuple):
@@ -82,6 +84,56 @@ def smooth_texture(
     # f32 sum in index order, as the JAX package's reduction adds them.
     hi = float(functools.reduce(lambda s, a: np.float32(s + a), texture.amps))
     return (acc + hi) / (2.0 * hi) * 255.0
+
+
+class FractalTexture(NamedTuple):
+    """A broadband (1/f) texture: `octaves` bands of four sinusoids, the
+    frequency doubling and the amplitude falling by 0.55 per band."""
+
+    freqs: np.ndarray    # (4 octaves, 2) f32
+    phases: np.ndarray   # (4 octaves,) f32
+    amps: np.ndarray     # (4 octaves,) f32, the 0.55^o factor included
+    octaves: int
+
+
+def fractal_texture(x: torch.Tensor, y: torch.Tensor, texture: FractalTexture) -> torch.Tensor:
+    """Broadband texture in [0, 255] at plane coordinates (x, y): every
+    pyramid level keeps signal, where the narrowband `smooth_texture`
+    aliases at coarse levels and repeats its minima at fine ones."""
+    acc = torch.zeros_like(x)
+    for (fx, fy), ph, a in zip(texture.freqs, texture.phases, texture.amps):
+        acc = acc + float(a) * torch.sin(float(fx) * x + float(fy) * y + float(ph))
+    # The static bound of the sum (every amplitude at most 0.55^o).
+    bound = sum(4 * (0.55 ** o) for o in range(texture.octaves))
+    return (acc + bound) / (2.0 * bound) * 255.0
+
+
+def fractal_scene_texture(seed: int, detail: float, octaves: int) -> FractalTexture:
+    """The JAX package's `fractal_texture(seed=seed, detail=detail,
+    octaves=octaves)` coefficients, for the triples carried as literals."""
+    try:
+        return FractalTexture(*FRACTAL_COEFFICIENTS[(seed, detail, octaves)], octaves=octaves)
+    except KeyError:
+        raise KeyError(
+            f"no fractal texture literals for seed={seed}, detail={detail}, "
+            f"octaves={octaves}; known: {sorted(FRACTAL_COEFFICIENTS)}"
+        ) from None
+
+
+def apply_photometric(image: torch.Tensor, generator: torch.Generator | None = None,
+                      noise_sigma: float = 2.0, gain: float = 1.0,
+                      bias: float = 0.0) -> torch.Tensor:
+    """Photometric degradation: brightness drift (gain and bias, as the JAX
+    package applies them: image * gain + bias) and additive Gaussian sensor
+    noise of `noise_sigma`, clipped to [0, 255]. The noise comes from
+    `generator` (on the image's device), so it is reproducible but not the
+    JAX package's draw: `jax.random.normal` cannot be reproduced here."""
+    img = image * gain + bias
+    if noise_sigma > 0:
+        noise = torch.randn(image.shape, generator=generator, dtype=image.dtype,
+                            device=image.device)
+        img = img + noise_sigma * noise
+    return torch.clamp(img, 0.0, 255.0)
 
 
 def _plane_hit(cam: PinholeCamera, T_cam_world: torch.Tensor, plane_z: float,
@@ -186,7 +238,7 @@ class PlaneSpec(NamedTuple):
     e2: np.ndarray       # (3,) f32 in-plane axis
     a1: float
     a2: float
-    texture: Texture
+    texture: Texture | FractalTexture
 
 
 def scene_texture(seed: int, detail: float) -> Texture:
@@ -202,18 +254,22 @@ def scene_texture(seed: int, detail: float) -> Texture:
 
 
 def make_plane(center, normal=(0.0, 0.0, -1.0), extent=(0.0, 0.0), seed: int = 0,
-               detail: float = 1.0, texture: Texture | None = None) -> PlaneSpec:
+               detail: float = 1.0, texture: Texture | FractalTexture | None = None,
+               octaves: int = 1) -> PlaneSpec:
     """A PlaneSpec from a centre and an outward normal; the in-plane axes
     complete the normal to an orthonormal frame and texture coordinates are
     measured along them. The texture is `texture`, else the literals for
-    (seed, detail); seed 0 at detail 1 is the benchmark texture."""
+    (seed, detail): the narrowband smooth texture at `octaves` 1 (seed 0 at
+    detail 1 is the benchmark texture), the broadband fractal one above."""
     n = np.asarray(normal, np.float32)
     n = n / np.linalg.norm(n)
     up = np.asarray([0.0, 1.0, 0.0] if abs(n[1]) < 0.9 else [1.0, 0.0, 0.0], np.float32)
     e1 = np.cross(up, n)
     e1 = (e1 / np.linalg.norm(e1)).astype(np.float32)
     e2 = np.cross(n, e1).astype(np.float32)
-    if texture is None:
+    if texture is None and octaves > 1:
+        texture = fractal_scene_texture(seed, detail, octaves)
+    elif texture is None:
         texture = TEXTURE_SEED0 if (seed, detail) == (0, 1.0) else scene_texture(seed, detail)
     return PlaneSpec(p0=np.asarray(center, np.float32), e1=e1, e2=e2,
                      a1=float(extent[0]), a2=float(extent[1]), texture=texture)
@@ -285,7 +341,8 @@ def render_scene_view(cam: PinholeCamera, T_cam_world: torch.Tensor,
     t, px, py, idx = _raycast_scene(cam, T_cam_world, scene)
     img = torch.zeros_like(t)
     for i, pl in enumerate(scene):
-        img = torch.where(idx == i, smooth_texture(px * 3.0, py * 3.0, pl.texture), img)
+        texture = fractal_texture if isinstance(pl.texture, FractalTexture) else smooth_texture
+        img = torch.where(idx == i, texture(px * 3.0, py * 3.0, pl.texture), img)
     return torch.where(idx >= 0, img, 0.0)
 
 
