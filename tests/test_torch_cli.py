@@ -1,6 +1,6 @@
 """The port's command line (`uwslam_tpu_torch.cli.main`) on the 18-frame PNG
 dataset of tests/test_cli_offline.py, live and `--offline` (FC and IC),
-against the JAX package's CLI on the same files, plus the flags it refuses.
+against the JAX package's CLI on the same files, and its session flags.
 
 Both CLIs run their default live loop (pipelined), `--no-pipeline` (the
 synchronous one), `-p` (TUM depth images, live and offline) and `--euroc`
@@ -23,7 +23,7 @@ from uwslam_tpu.cli import main as jax_main  # noqa: E402
 from uwslam_tpu.lie import se3 as jse3  # noqa: E402
 from uwslam_tpu.lie import so3 as jso3  # noqa: E402
 from uwslam_tpu.utils.synthetic import render_plane_view  # noqa: E402
-from uwslam_tpu_torch.cli.main import UNPORTED_FLAGS, build_parser  # noqa: E402
+from uwslam_tpu_torch.cli.main import build_parser  # noqa: E402
 from uwslam_tpu_torch.cli.main import main as port_main  # noqa: E402
 from test_torch_ransac import jax_accelerator_branch  # noqa: E402
 
@@ -211,15 +211,80 @@ def test_euroc_cli_with_distortion_matches_jax_cli(euroc_dataset, tmp_path, caps
                ate_max=0.03)
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS))
-def test_unported_flags_exit_nonzero_naming_the_roadmap(dataset, tmp_path, capsys, flag):
-    action = next(a for a in build_parser()._actions if a.dest == flag)
-    value = [] if action.nargs == 0 else [str(tmp_path) if action.type is None else "2"]
-    argv = _args(dataset, tmp_path / "t.txt", "--platform", "cpu",
-                 action.option_strings[-1], *value)
-    assert port_main(argv) != 0
-    assert "ROADMAP slice" in capsys.readouterr().err
-    assert not (tmp_path / "t.txt").exists()
+def _viz_port(dataset, tmp_path, capsys):
+    assert port_main(_args(dataset, tmp_path / "t.txt", "--platform", "cpu", "--max-frames",
+                           "8", "--viz-port", "0")) == 0
+    out = capsys.readouterr()
+    assert re.search(r"live view: http://127\.0\.0\.1:[1-9]\d*", out.err)
+    assert ATE.search(out.out)
+
+
+def _map_out(dataset, tmp_path, capsys):
+    for main, name in ((port_main, "port"), (jax_main, "jax")):
+        assert main(_args(dataset, tmp_path / f"{name}.txt", "--platform", "cpu",
+                          "--max-frames", "8", "--map-out", str(tmp_path / f"{name}.ply"))) == 0
+    counts = re.findall(r"map: (\d+) points -> ", capsys.readouterr().err)
+    assert len(counts) == 2 and counts[0] == counts[1] and int(counts[0]) > 100
+    head = (tmp_path / "port.ply").read_text().splitlines()[:3]
+    assert head[2] == f"element vertex {counts[0]}"
+
+
+def _checkpoint(dataset, tmp_path, capsys):
+    ck = tmp_path / "session"
+    assert port_main(_args(dataset, tmp_path / "t.txt", "--platform", "cpu", "--max-frames",
+                           "9", "--checkpoint", str(ck))) == 0
+    assert f"checkpoint -> {ck}" in capsys.readouterr().err
+    from uwslam_tpu_torch.utils.checkpoint import load_session
+
+    st = load_session(str(ck))
+    assert int(st["frame_id"]) == 9 and st["traj_T"].shape == (9, 4, 4)
+
+
+def _resume(dataset, tmp_path, capsys):
+    """A checkpoint after 9 frames, resumed by the port's CLI and by the JAX
+    package's: both continue over the other 9 to the same trajectory."""
+    ck = tmp_path / "session"
+    assert port_main(_args(dataset, tmp_path / "first.txt", "--platform", "cpu",
+                           "--max-frames", "9", "--checkpoint", str(ck))) == 0
+    capsys.readouterr()
+    for main, name in ((port_main, "port"), (jax_main, "jax")):
+        assert main(_args(dataset, tmp_path / f"{name}.txt", "--platform", "cpu",
+                          "--resume", str(ck) + ".npz")) == 0
+    out = capsys.readouterr()
+    assert out.err.count("resumed at frame 9") == 2
+    m = ATE.search(out.out)
+    assert m and float(m.group(1)) < 0.01 and int(m.group(2)) == 18
+    a, b = np.loadtxt(tmp_path / "port.txt"), np.loadtxt(tmp_path / "jax.txt")
+    assert a.shape == (18, 8)
+    np.testing.assert_allclose(a, b, atol=1e-4)
+    np.testing.assert_allclose(a[:9], np.loadtxt(tmp_path / "first.txt"), atol=1e-6)
+
+
+def _trace(dataset, tmp_path, capsys):
+    import json
+
+    for extra in ((), ("--offline", "--chunk", "8")):
+        logdir = tmp_path / ("offline" if extra else "live")
+        assert port_main(_args(dataset, tmp_path / "t.txt", "--platform", "cpu", "--trace",
+                               str(logdir), "--max-frames", "8", *extra)) == 0
+        files = list(logdir.glob("*.pt.trace.json"))
+        assert len(files) == 1
+        names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+        assert any(str(n).startswith("aten::") for n in names)
+    assert len(ATE.findall(capsys.readouterr().out)) == 2
+
+
+SESSION_FLAGS = {"viz_port": _viz_port, "map_out": _map_out, "checkpoint": _checkpoint,
+                 "resume": _resume, "trace": _trace}
+
+
+@pytest.mark.parametrize("flag", sorted(SESSION_FLAGS))
+def test_session_flags_work_on_the_cpu(dataset, tmp_path, capsys, flag):
+    """The five session flags the port once refused (`--viz-port`,
+    `--map-out`, `--checkpoint`, `--resume`, `--trace`): each runs to exit
+    0 and does its work; `--map-out` and `--resume` as the JAX CLI does."""
+    assert flag in {a.dest for a in build_parser()._actions}
+    SESSION_FLAGS[flag](dataset, tmp_path, capsys)
 
 
 @pytest.mark.parametrize("loop", [(), ("--no-pipeline",)], ids=["pipelined", "synchronous"])

@@ -253,3 +253,40 @@ def test_track_sequence_batched_fc_matches_jax():
     T, inl, _ = tracker(_t(frames), mono_z=2.0)
     assert _log_diff(T, T_j) < 1e-4
     np.testing.assert_array_equal(inl.numpy(), np.asarray(inl_j))
+
+
+def test_track_defaults_to_fc_as_jax(pairs):
+    """`track` with only its required arguments tracks as the JAX package's
+    does: FC, track levels (3, 2, 1, 0), 10 iterations, Huber. A good pair
+    to 1e-4 on se3.log; the garbage pair, whose FC result the JAX package's
+    own rounding moves (5.9e-5 under XLA's default ISA, 2.1e-4 under AVX2,
+    7.5e-4 under SSE4_2), to 1e-2, where IC lands 3.6 away with 295
+    inliers against 273: a default of "ic" fails here. Inliers equal."""
+    ref_pyr, tgt_pyr, ref_pts = pairs
+    for i, tol in ((1, 1e-4), (3, 1e-2)):
+        one = lambda tree: jax.tree.map(lambda x: x[i:i + 1], tree)  # noqa: E731
+        rp, tp, pp = one(ref_pyr), one(tgt_pyr), one(ref_pts)
+        got = photometric.track(pyramid_from_numpy(rp), pyramid_from_numpy(tp),
+                                points_from_numpy(pp), CAM)
+        first = lambda tree: jax.tree.map(lambda x: x[0], tree)  # noqa: E731
+        want = jphoto.track(first(rp), first(tp), first(pp), JCAM)
+        assert _log_diff(got.T[0], want.T) < tol
+        assert int(got.inliers[0]) == int(want.inliers)
+
+
+def test_track_sequence_batched_defaults_to_fc_as_jax():
+    """`track_sequence_batched` with only its required arguments (FC, 5
+    levels, 2048 points, mono_z 1) on three frames of 320 x 240 (the
+    selection keeps every block maximum there), the last an unrelated view
+    as in the `pairs` fixture: poses 1e-4 on se3.log, inliers equal."""
+    jcam = JaxCamera(fx=262.5, fy=262.5, cx=159.5, cy=119.5, width=320, height=240)
+    poses = [jse3.exp(jnp.asarray([0.01 * i, 0.004 * i, 0.002 * i, 0.001 * i, -0.001 * i,
+                                   0.002 * i], jnp.float32)) for i in range(2)]
+    frames = [np.asarray(render_plane_view(jcam, T, 2.0)) for T in poses]
+    frames.append(np.asarray(render_plane_view(
+        jcam, jse3.exp(jnp.asarray([0.3, 0.2, 0.0, 0.0, 0.0, 0.4], jnp.float32)), 2.0, seed=3)))
+    frames = np.stack(frames)
+    T_j, inl_j, _ = jseq.track_sequence_batched(jnp.asarray(frames), jcam)
+    T, inl, _ = sequence.track_sequence_batched(_t(frames), camera_from_jax(jcam))
+    assert _log_diff(T, T_j) < 1e-4
+    np.testing.assert_array_equal(inl.numpy(), np.asarray(inl_j))

@@ -206,3 +206,35 @@ def test_trajectory_round_trip_against_jax_readers(tmp_path):
     gt_ts = ts[::2] + 0.004
     for a_, b_ in zip(trajectory.associate(ts, gt_ts), jtraj.associate(ts, gt_ts)):
         np.testing.assert_array_equal(a_, b_)
+
+
+def test_euroc_rows_and_rpe_match_jax():
+    """`poses_from_euroc_rows` (qw first) within 1e-6 of the JAX package's
+    (f32 quaternion algebra in another order) and the relative pose error
+    (host numpy in both) within 1e-9 on the same poses, over deltas 1 and
+    3."""
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(12, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    rows = np.concatenate([np.arange(12)[:, None] * 0.05, rng.normal(size=(12, 3)), q], axis=1)
+    got = trajectory.poses_from_euroc_rows(rows)
+    want = np.asarray(jtraj.poses_from_euroc_rows(rows))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    noisy = got.copy()
+    noisy[:, :3, 3] += 0.01 * rng.normal(size=(12, 3))
+    for delta in (1, 3):
+        np.testing.assert_allclose(trajectory.rpe(noisy, got, delta),
+                                   jtraj.rpe(noisy, got, delta), atol=1e-9)
+    assert trajectory.rpe(got, got)[0] < 1e-6
+
+
+def test_pipeline_presets_match_jax():
+    from uwslam_tpu import models as jmodels
+    from uwslam_tpu_torch import models
+
+    for name in ("direct_odometry_config", "feature_slam_config", "windowed_ba_config",
+                 "full_slam_config"):
+        got, want = getattr(models, name)(profile=True), getattr(jmodels, name)(profile=True)
+        for field in ("use_features", "use_ba", "use_reloc", "use_loop_closure", "global_ba",
+                      "profile"):
+            assert getattr(got, field) == getattr(want, field), (name, field)

@@ -80,7 +80,7 @@ def test_slice_trajectory_and_ate_match_jax(slice_runs):
 def test_functional_and_module_entry_points_agree(slice_runs):
     (T, _, _), _, _ = slice_runs
     frames = bench.bench_frames(bench.bench_poses(8, device="cpu"), CAM)
-    T2, _, _ = sequence.track_sequence_batched(frames, CAM, mono_z=2.0, **CONFIG)
+    T2, _, _ = sequence.track_sequence_batched(frames, CAM, mono_z=2.0, mode="ic", **CONFIG)
     assert float((se3.log(T2) - se3.log(T)).abs().max()) < 1e-4
     with pytest.raises(ValueError):
         sequence.SequenceTracker(CAM, mode="forward")

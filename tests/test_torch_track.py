@@ -200,7 +200,7 @@ def test_track_ic_matches_jax(pairs):
     ))(ref_pyr, tgt_pyr, ref_pts)
     got = photometric.track(
         pyramid_from_numpy(ref_pyr), pyramid_from_numpy(tgt_pyr),
-        points_from_numpy(ref_pts), CAM, levels=levels, max_iters=iters,
+        points_from_numpy(ref_pts), CAM, levels=levels, max_iters=iters, mode="ic",
     )
     dlog = se3.log(got.T) - se3.log(torch.from_numpy(np.array(want.T)))
     assert float(dlog[:3].abs().max()) < 1e-4

@@ -74,42 +74,58 @@ def photo_texels(problem: PhotoBAProblem) -> torch.Tensor:
     return pack_texels(problem.images, problem.grad_x, problem.grad_y)
 
 
-def _project(problem: PhotoBAProblem, cam: PinholeCamera):
+def _project(problem: PhotoBAProblem, cam: PinholeCamera,
+             observer_idx: torch.Tensor | None = None):
     """Every point in every keyframe -> (rho (K, N), owner-frame points X_i
-    (K, N, 3), rotations R_ji (K, K, 3, 3), observer-frame points X_j
-    (K, K, N, 3), and the projections grouped by observer (K, K N, 2): what
-    kernel K3 samples), indexed (i owner, j observer, n point)."""
+    (K, N, 3), rotations R_ji (K, Kj, 3, 3), observer-frame points X_j
+    (K, Kj, N, 3), and the projections grouped by observer (Kj, K N, 2):
+    what kernel K3 samples), indexed (i owner, j observer, n point). The
+    observers are the keyframes `observer_idx` (Kj,), or all K."""
     K, N = problem.inv_depth.shape
     rho = torch.clamp(problem.inv_depth, min=1e-6)
     # Owner-frame points X_i = unproject(uv) / rho.
     X_i = cam.unproject(problem.uv, torch.ones_like(rho)) / rho[..., None]
     # Relative transforms T_ji = T_cw[j] T_cw[i]^-1 for every pair, (i, j).
     T_ji = torch.matmul(problem.T_cw[None], se3.inverse(problem.T_cw)[:, None])
+    if observer_idx is not None:
+        T_ji = T_ji.index_select(1, observer_idx)
     R_ji, t_ji = T_ji[..., :3, :3], T_ji[..., :3, 3]
     X_j = torch.einsum("ijab,inb->ijna", R_ji, X_i) + t_ji[:, :, None, :]
-    uv_by_j = cam.project(X_j).transpose(0, 1).reshape(K, K * N, 2)
+    uv_by_j = cam.project(X_j).transpose(0, 1).reshape(T_ji.shape[1], K * N, 2)
     return rho, X_i, R_ji, X_j, uv_by_j
 
 
 def _observations(problem: PhotoBAProblem, cam: PinholeCamera, texels: torch.Tensor | None = None,
-                  active: torch.Tensor | None = None, jacobians: bool = True):
+                  active: torch.Tensor | None = None, jacobians: bool = True,
+                  observer_idx: torch.Tensor | None = None):
     """Every owner x observer x point residual in one pass (kernel K3, one
-    launch) -> r (K, K, N), A (K, K, N, 6) owner-pose Jacobian, B (K, K, N, 6)
-    observer-pose Jacobian, Jd (K, K, N) inverse-depth Jacobian, valid
-    (K, K, N), indexed (i owner, j observer, n point), zero where not valid;
-    with `jacobians=False` only (r, valid)."""
+    launch) -> r (K, Kj, N), A (K, Kj, N, 6) owner-pose Jacobian, B
+    (K, Kj, N, 6) observer-pose Jacobian, Jd (K, Kj, N) inverse-depth
+    Jacobian, valid (K, Kj, N), indexed (i owner, j observer, n point), zero
+    where not valid; with `jacobians=False` only (r, valid).
+
+    `observer_idx` (Kj,) names the keyframes that observe, and `texels`
+    then holds theirs (Kj, H, W, 4) (the observer-sharded solve: a shard
+    holds its observers' images, the owners' data is replicated); None:
+    all K observe, Kj = K."""
     K, N = problem.inv_depth.shape
     dev = problem.inv_depth.device
     if texels is None:
         texels = photo_texels(problem)
-    rho, X_i, R_ji, X_j, uv_by_j = _project(problem, cam)
+    rho, X_i, R_ji, X_j, uv_by_j = _project(problem, cam, observer_idx)
+    Kj = uv_by_j.shape[0]
     # Sample each observer's intensity and gradients at its K * N projections.
-    vals, in_img = cuda_bilinear_sample(texels, uv_by_j, texels=True)        # (K, 3, K N)
-    vals = vals.reshape(K, 3, K, N).permute(2, 0, 3, 1)                     # (i, j, n, 3)
-    in_img = in_img.reshape(K, K, N).transpose(0, 1)
-    pair = ~torch.eye(K, dtype=torch.bool, device=dev)        # no self-observation
-    if active is not None:
-        pair = pair & active[:, None] & active[None, :]
+    vals, in_img = cuda_bilinear_sample(texels, uv_by_j, texels=True)        # (Kj, 3, K N)
+    vals = vals.reshape(Kj, 3, K, N).permute(2, 0, 3, 1)                    # (i, j, n, 3)
+    in_img = in_img.reshape(Kj, K, N).transpose(0, 1)
+    if observer_idx is None:
+        pair = ~torch.eye(K, dtype=torch.bool, device=dev)    # no self-observation
+        if active is not None:
+            pair = pair & active[:, None] & active[None, :]
+    else:
+        pair = torch.arange(K, device=dev)[:, None] != observer_idx[None, :]
+        if active is not None:
+            pair = pair & active[:, None] & active.index_select(0, observer_idx)[None, :]
     valid = problem.valid[:, None, :] & in_img & (X_j[..., 2] > 1e-3) & pair[:, :, None]
     r = torch.where(valid, vals[..., 0] - problem.intensity[:, None, :], 0.0)
     if not jacobians:
@@ -183,61 +199,55 @@ class _State(NamedTuple):
     done: torch.Tensor
 
 
-def photometric_bundle_adjust(
-    problem: PhotoBAProblem,
-    cam: PinholeCamera,
-    max_iters: int = 12,
-    huber_delta: float = 12.0,
-    pose0_weight: float = 1e8,
-    depth_prior: float = 1e-2,
-    init_lambda: float = 1e-3,
-    optimize_depths: bool = True,
-    active: torch.Tensor | None = None,
-) -> PhotoBAResult:
-    """Joint LM over {T_cw} and {inverse depths} with Schur elimination of
-    the diagonal depth block; keyframe 0 is the gauge anchor. `active` (K,)
-    bool marks the keyframes that take part (None: all)."""
-    K, N = problem.inv_depth.shape
-    dev, dt = problem.inv_depth.device, problem.inv_depth.dtype
-    texels = photo_texels(problem)
+def _damped_step(T_cw, inv_depth, lam, equations, pose0_weight: float, depth_prior: float,
+                 optimize_depths: bool):
+    """One LM step from the normal equations (Hpp, bp, Hpd, Hdd, bd) at
+    (T_cw, inv_depth): the gauge prior on keyframe 0, damping `lam`, the
+    depth block eliminated by Schur -> (T_cw, inv_depth, ok); a step that is
+    not finite leaves the state as it was."""
+    Hpp, bp, Hpd, Hdd, bd = equations
+    K, N = inv_depth.shape
+    dev, dt = inv_depth.device, inv_depth.dtype
     eye = torch.eye(6 * K, dtype=dt, device=dev)
     gauge = torch.where(torch.arange(6 * K, device=dev) < 6, pose0_weight, 0.0).to(dt)
+    Hpp = Hpp + torch.diag(gauge)
+    Hpp = Hpp + lam * torch.diag(torch.diagonal(Hpp)) + 1e-6 * eye
+    if optimize_depths:
+        Hdd_inv = 1.0 / torch.clamp(Hdd * (1.0 + lam) + depth_prior, min=1e-12)
+        S = Hpp - torch.matmul(Hpd * Hdd_inv.reshape(1, -1), Hpd.T)
+        rhs = bp - torch.matmul(Hpd, (Hdd_inv * bd).reshape(-1))
+        dp = torch.linalg.solve_ex(S, rhs[:, None]).result[:, 0]
+        dd = Hdd_inv * (bd - torch.matmul(dp, Hpd).reshape(K, N))
+    else:
+        dp = torch.linalg.solve_ex(Hpp, bp[:, None]).result[:, 0]
+        dd = torch.zeros_like(inv_depth)
+    T_new = se3.normalize(se3.compose(se3.exp(dp.reshape(K, 6)), T_cw))
+    depth_new = torch.clamp(inv_depth + dd, min=1e-4)
+    ok = torch.isfinite(dp).all() & torch.isfinite(dd).all()
+    return torch.where(ok, T_new, T_cw), torch.where(ok, depth_new, inv_depth), ok
 
-    def cost_at(T_cw, inv_depth):
-        p = problem._replace(T_cw=T_cw, inv_depth=inv_depth)
-        r, valid = _observations(p, cam, texels, active, jacobians=False)
-        return _cost(r, valid, huber_delta)
 
-    def step(T_cw, inv_depth, lam):
-        p = problem._replace(T_cw=T_cw, inv_depth=inv_depth)
-        r, A, B, Jd, valid = _observations(p, cam, texels, active)
-        Hpp, bp, Hpd, Hdd, bd = _normal_equations(r, A, B, Jd, _huber_w(r, valid, huber_delta))
-        Hpp = Hpp + torch.diag(gauge)
-        Hpp = Hpp + lam * torch.diag(torch.diagonal(Hpp)) + 1e-6 * eye
-        if optimize_depths:
-            Hdd_inv = 1.0 / torch.clamp(Hdd * (1.0 + lam) + depth_prior, min=1e-12)
-            S = Hpp - torch.matmul(Hpd * Hdd_inv.reshape(1, -1), Hpd.T)
-            rhs = bp - torch.matmul(Hpd, (Hdd_inv * bd).reshape(-1))
-            dp = torch.linalg.solve_ex(S, rhs[:, None]).result[:, 0]
-            dd = Hdd_inv * (bd - torch.matmul(dp, Hpd).reshape(K, N))
-        else:
-            dp = torch.linalg.solve_ex(Hpp, bp[:, None]).result[:, 0]
-            dd = torch.zeros_like(inv_depth)
-        T_new = se3.normalize(se3.compose(se3.exp(dp.reshape(K, 6)), T_cw))
-        depth_new = torch.clamp(inv_depth + dd, min=1e-4)
-        ok = torch.isfinite(dp).all() & torch.isfinite(dd).all()
-        return torch.where(ok, T_new, T_cw), torch.where(ok, depth_new, inv_depth), ok
-
-    c0 = cost_at(problem.T_cw, problem.inv_depth)
+def _levenberg_marquardt(T_cw, inv_depth, cost_at, equations_at, max_iters: int,
+                         init_lambda: float, pose0_weight: float, depth_prior: float,
+                         optimize_depths: bool) -> PhotoBAResult:
+    """The JAX package's LM loop over `cost_at(T, d)` and the normal
+    equations `equations_at(T, d)`: a step is taken when its cost is lower,
+    lambda halves or quadruples within [1e-8, 1e4], and the solve stops at
+    lambda > 1e3 or a relative cost change below 1e-7. A loop of `max_iters`
+    passes with a `done` mask: nothing is read on the host."""
+    dev, dt = inv_depth.device, inv_depth.dtype
+    c0 = cost_at(T_cw, inv_depth)
     s = _State(
-        T_cw=problem.T_cw, inv_depth=problem.inv_depth, cost=c0,
+        T_cw=T_cw, inv_depth=inv_depth, cost=c0,
         lam=torch.full((), init_lambda, dtype=dt, device=dev),
         k=torch.zeros((), dtype=torch.long, device=dev),
         done=torch.zeros((), dtype=torch.bool, device=dev),
     )
     for _ in range(max_iters):
         live = ~s.done
-        T_new, d_new, ok = step(s.T_cw, s.inv_depth, s.lam)
+        T_new, d_new, ok = _damped_step(s.T_cw, s.inv_depth, s.lam,
+                                        equations_at(s.T_cw, s.inv_depth), pose0_weight,
+                                        depth_prior, optimize_depths)
         c_new = cost_at(T_new, d_new)
         accept = ok & torch.isfinite(c_new) & (c_new < s.cost)
         take = live & accept
@@ -253,6 +263,37 @@ def photometric_bundle_adjust(
         )
     return PhotoBAResult(T_cw=s.T_cw, inv_depth=s.inv_depth, cost=s.cost, initial_cost=c0,
                          iterations=s.k)
+
+
+def photometric_bundle_adjust(
+    problem: PhotoBAProblem,
+    cam: PinholeCamera,
+    max_iters: int = 12,
+    huber_delta: float = 12.0,
+    pose0_weight: float = 1e8,
+    depth_prior: float = 1e-2,
+    init_lambda: float = 1e-3,
+    optimize_depths: bool = True,
+    active: torch.Tensor | None = None,
+) -> PhotoBAResult:
+    """Joint LM over {T_cw} and {inverse depths} with Schur elimination of
+    the diagonal depth block; keyframe 0 is the gauge anchor. `active` (K,)
+    bool marks the keyframes that take part (None: all)."""
+    texels = photo_texels(problem)
+
+    def cost_at(T_cw, inv_depth):
+        p = problem._replace(T_cw=T_cw, inv_depth=inv_depth)
+        r, valid = _observations(p, cam, texels, active, jacobians=False)
+        return _cost(r, valid, huber_delta)
+
+    def equations_at(T_cw, inv_depth):
+        p = problem._replace(T_cw=T_cw, inv_depth=inv_depth)
+        r, A, B, Jd, valid = _observations(p, cam, texels, active)
+        return _normal_equations(r, A, B, Jd, _huber_w(r, valid, huber_delta))
+
+    return _levenberg_marquardt(problem.T_cw, problem.inv_depth, cost_at, equations_at,
+                                max_iters, init_lambda, pose0_weight, depth_prior,
+                                optimize_depths)
 
 
 def photo_ba_problem_from_keyframes(pyramids, T_cw, points, level: int = 1) -> PhotoBAProblem:

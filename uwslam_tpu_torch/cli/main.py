@@ -22,24 +22,19 @@ pose-graph correction (SE(3) with `--loop-se3`), `--dist-ba` the global
 landmark-sharded bundle adjustment of the whole keyframe map after the
 last frame, in `--host-devices` shards (the JAX package's device count;
 default 1). The stderr lines of loop closure and of the global BA have the
-JAX package's format, so `eval.py`'s patterns read them.
-Flags of later slices exit non-zero naming the ROADMAP item.
+JAX package's format, so `eval.py`'s patterns read them. Session tooling:
+`--viz-port` serves the live trajectory over HTTP (0: an ephemeral port,
+printed), `--map-out` writes the keyframe map as PLY, `--checkpoint` saves
+the session after the last frame, `--resume` continues a saved one (at its
+next dataset index unless `-s` is given), `--trace DIR` writes a
+`torch.profiler` Chrome trace of the run into DIR.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
-
-# Flags whose slice is not ported: flag -> (what, ROADMAP slice and item).
-UNPORTED_FLAGS = {
-    "viz_port": ("--viz-port (live view)", "slice 8, item 18"),
-    "map_out": ("--map-out (PLY map export)", "slice 8, item 18"),
-    "checkpoint": ("--checkpoint (session checkpoints)", "slice 8, item 18"),
-    "resume": ("--resume (session checkpoints)", "slice 8, item 18"),
-    "trace": ("--trace (device trace capture)", "slice 8, item 18"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -139,15 +134,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="landmark shards of the global BA in this process (the "
                         "JAX package's virtual host devices; default 1)")
     return p
-
-
-def _refuse_unported_flags(args) -> str | None:
-    from ..config import unported
-
-    for name, (what, item) in UNPORTED_FLAGS.items():
-        if getattr(args, name) not in (None, False):
-            return str(unported(what, item))
-    return None
 
 
 def _report_ate(ts, poses, args) -> None:
@@ -251,10 +237,6 @@ def run_offline(args, system, config, seq) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refused = _refuse_unported_flags(args)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
-        return 2
 
     import torch
 
@@ -268,13 +250,7 @@ def main(argv=None) -> int:
 
     from .. import camera
     from ..config import FeatureConfig, KeyframeConfig, SlamConfig, TrackerConfig
-    from ..io import (
-        DeviceFramePrefetcher,
-        FramePrefetcher,
-        open_directory,
-        open_euroc,
-        open_tum,
-    )
+    from ..io import open_directory, open_euroc, open_tum
     from ..system import SlamSystem
     from ..tracking.robust import WeightKind
 
@@ -325,6 +301,11 @@ def main(argv=None) -> int:
             use_features=True, use_ba=False, use_reloc=False,
         )
     system = SlamSystem(calib, config, device=device)
+    if args.resume:
+        start_at = system.resume_from(args.resume)
+        print(f"resumed at frame {start_at}", file=sys.stderr)
+        if args.start == 0:
+            args.start = start_at   # continue at the next dataset index
     if args.euroc:
         seq = open_euroc(args.directory, start=args.start)
     elif args.depth:
@@ -333,7 +314,59 @@ def main(argv=None) -> int:
         seq = open_directory(args.directory, start=args.start)
 
     if args.offline:
-        return run_offline(args, system, config, seq)
+        with _traced(args.trace):
+            return run_offline(args, system, config, seq)
+
+    viz = None
+    if args.viz_port is not None:
+        from ..viz import VizServer
+
+        viz = VizServer(port=args.viz_port)
+        print(f"live view: http://127.0.0.1:{viz.port}", file=sys.stderr)
+    try:
+        run_live(args, system, seq, viz)
+    finally:
+        if viz is not None:
+            viz.close()
+    if args.map_out:
+        n_pts = system.export_map_ply(args.map_out)
+        print(f"map: {n_pts} points -> {args.map_out}", file=sys.stderr)
+    if args.checkpoint:
+        system.save_checkpoint(args.checkpoint)
+        print(f"checkpoint -> {args.checkpoint}", file=sys.stderr)
+    ts, poses = system.export_trajectory(args.trajectory_out)
+    _report_ate(ts, poses, args)
+    return 0
+
+
+def _traced(logdir):
+    """`utils.profiling.trace(logdir)`, or nothing without a directory."""
+    if logdir is None:
+        return contextlib.nullcontext()
+    from ..utils.profiling import trace
+
+    return trace(logdir)
+
+
+def run_live(args, system, seq, viz=None) -> None:
+    """The live loop over `seq` (pipelined unless `--no-pipeline` or
+    `--profile`), under `--trace`, then the run's stderr report; every
+    fifth frame the estimated positions (and the ground truth's, when
+    given) go to `viz`."""
+    import numpy as np
+
+    from ..io import (
+        DeviceFramePrefetcher,
+        FramePrefetcher,
+        read_groundtruth_euroc,
+        read_groundtruth_tum,
+    )
+
+    gt_rows = None
+    if viz is not None and args.tum_gt:
+        gt_rows = read_groundtruth_tum(args.tum_gt)
+    elif viz is not None and args.euroc_gt:
+        gt_rows = read_groundtruth_euroc(args.euroc_gt)
 
     # Pipelined by default; --no-pipeline and --profile (stage timers need
     # fenced stages) take the synchronous loop.
@@ -350,21 +383,27 @@ def main(argv=None) -> int:
     prefetcher = (DeviceFramePrefetcher(seq, system.device) if pipelined
                   else FramePrefetcher(seq))
     try:
-        for i, (img, depth) in prefetcher:
-            if i >= n:
-                break
-            if i == warmup:
-                t_warm = time.perf_counter()
-            state = step(
-                img, depth,
-                timestamp=seq.timestamps[i] if seq.timestamps is not None else None,
-            )
-            if i % 50 == 0 and state is not None:
-                print(f"frame {i}: inliers={state.tracked_inliers} "
-                      f"err={state.track_error:.3f} kf={state.is_keyframe}",
-                      file=sys.stderr)
-        if pipelined:
-            system.flush()   # retire the frames still in flight
+        with _traced(args.trace):
+            for i, (img, depth) in prefetcher:
+                if i >= n:
+                    break
+                if i == warmup:
+                    t_warm = time.perf_counter()
+                state = step(
+                    img, depth,
+                    timestamp=seq.timestamps[i] if seq.timestamps is not None else None,
+                )
+                if i % 50 == 0 and state is not None:
+                    print(f"frame {i}: inliers={state.tracked_inliers} "
+                          f"err={state.track_error:.3f} kf={state.is_keyframe}",
+                          file=sys.stderr)
+                if viz is not None and i % 5 == 0 and i > 0 and system.trajectory:
+                    est = np.stack([s.T_wc[:3, 3] for s in system.trajectory])
+                    gt = (gt_rows[: len(est), 1:4]
+                          if gt_rows is not None and len(gt_rows) else None)
+                    viz.update(est, gt)
+            if pipelined:
+                system.flush()   # retire the frames still in flight
     finally:
         prefetcher.close()
     dt = time.perf_counter() - t0
@@ -384,9 +423,6 @@ def main(argv=None) -> int:
         report_global_ba(system.run_global_distributed_ba(shards=args.host_devices or 1))
     if args.profile:
         print(system.timers.report(), file=sys.stderr)
-    ts, poses = system.export_trajectory(args.trajectory_out)
-    _report_ate(ts, poses, args)
-    return 0
 
 
 if __name__ == "__main__":

@@ -9,23 +9,12 @@ and iteration cap (src/Tracker.cpp:508,688); ratio 0.65
 (include/Tracker.h:289); keypoint reuse threshold 110 (src/System.cpp:208);
 depth factor 0.0002 (src/Tracker.cpp:1223); <= 200 keypoints per frame
 (src/Tracker.cpp:1190).
-
-`unported` is the error of a flag or input whose slice is not ported yet
-(the CLI's session tooling).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 from .tracking.robust import WeightKind
-
-
-def unported(what: str, roadmap: str) -> NotImplementedError:
-    """The error for a switch, flag or input whose slice is not ported yet;
-    `roadmap` names the ROADMAP.md slice and item that will port it."""
-    return NotImplementedError(
-        f"{what} is not ported to uwslam_tpu_torch yet (ROADMAP {roadmap})"
-    )
 
 
 @dataclass(frozen=True)

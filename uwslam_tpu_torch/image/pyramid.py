@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.cuda_pyramid import scharr_gradients_batched, scharr_plain
-from ..ops.cuda_sample import bilinear_sample_plain
+from ..ops.cuda_sample import cuda_bilinear_sample
 
 PYRAMID_LEVELS = 5
 
@@ -73,8 +73,11 @@ def build_pyramid(image: torch.Tensor, levels: int = PYRAMID_LEVELS) -> FramePyr
 
 def bilinear_sample(image: torch.Tensor, uv: torch.Tensor, fill: float = 0.0):
     """Bilinear interpolation of image (H, W) at uv (..., 2) -> (values (...),
-    valid (...)); `fill` where (u, v) is outside [0, W-1] x [0, H-1]."""
+    valid (...)); `fill` where (u, v) is outside [0, W-1] x [0, H-1]. Kernel
+    K3 (C = 1) on a CUDA tensor, its plain version on a CPU one."""
     lead = uv.shape[:-1]
-    out, valid = bilinear_sample_plain(image[None, None], uv.reshape(1, -1, 2))
+    out, valid = cuda_bilinear_sample(
+        image.to(torch.float32)[None, None].contiguous(),
+        uv.to(torch.float32).reshape(1, -1, 2).contiguous())
     out, valid = out.reshape(lead), valid.reshape(lead)
     return torch.where(valid, out, fill), valid

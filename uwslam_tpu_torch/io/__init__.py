@@ -12,10 +12,12 @@ from .dataset import (
 from .trajectory import (
     associate,
     ate_rmse,
+    poses_from_euroc_rows,
     poses_from_tum_rows,
     read_groundtruth_euroc,
     read_groundtruth_tum,
     read_trajectory_tum,
+    rpe,
     umeyama_alignment,
     write_trajectory_tum,
 )
@@ -30,11 +32,13 @@ __all__ = [
     "open_directory",
     "open_euroc",
     "open_tum",
+    "poses_from_euroc_rows",
     "poses_from_tum_rows",
     "read_groundtruth_euroc",
     "read_groundtruth_tum",
     "read_pgm",
     "read_trajectory_tum",
+    "rpe",
     "umeyama_alignment",
     "write_trajectory_tum",
 ]

@@ -55,6 +55,15 @@ def poses_from_tum_rows(rows: np.ndarray) -> np.ndarray:
     return T.numpy()
 
 
+def poses_from_euroc_rows(rows: np.ndarray) -> np.ndarray:
+    """(N, 8) EUROC rows (t, tx ty tz, qw qx qy qz) -> (N, 4, 4) float32."""
+    T = se3.from_quaternion_translation(
+        torch.from_numpy(rows[:, 4:8].astype(np.float32)),
+        torch.from_numpy(rows[:, 1:4].astype(np.float32)),
+    )
+    return T.numpy()
+
+
 def write_trajectory_tum(path: str, timestamps, poses) -> None:
     """Write (N, 4, 4) world <- camera poses as `ts tx ty tz qx qy qz qw`."""
     T = torch.from_numpy(np.asarray(poses, dtype=np.float32))
@@ -147,3 +156,18 @@ def ate_rmse(
         est = (s * (R @ est.T)).T + t
     err = est - gt
     return float(np.sqrt((err ** 2).sum(axis=1).mean()))
+
+
+def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1):
+    """Relative pose error over every pair `delta` frames apart ->
+    (translation RMSE, rotation RMSE in radians)."""
+    est, gt = np.asarray(est_poses), np.asarray(gt_poses)
+    terrs, rerrs = [], []
+    for i in range(len(est) - delta):
+        de = np.linalg.inv(est[i]) @ est[i + delta]
+        dg = np.linalg.inv(gt[i]) @ gt[i + delta]
+        e = np.linalg.inv(dg) @ de
+        terrs.append(np.linalg.norm(e[:3, 3]))
+        rerrs.append(np.arccos(np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1)))
+    return (float(np.sqrt(np.mean(np.square(terrs)))),
+            float(np.sqrt(np.mean(np.square(rerrs)))))

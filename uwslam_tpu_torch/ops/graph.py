@@ -78,6 +78,12 @@ class CapturedStep:
             w.launches = b
         self.replays = 0
 
+    def clear_inputs(self) -> None:
+        """Zero the static inputs: nothing of the last call's arguments
+        stays on the card (a replay copies its own in first)."""
+        for t in self._in_leaves:
+            t.zero_()
+
     def __call__(self, *inputs):
         """Copy `inputs` into the static inputs, replay, and return the static
         outputs (valid until the next call)."""

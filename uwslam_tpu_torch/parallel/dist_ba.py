@@ -47,6 +47,8 @@ from ..lie import se3
 from ..utils.linalg import cholesky_solve_unrolled
 from .runtime import ShardLayout
 
+AXIS = "lm"   # the JAX package's mesh axis of the landmark shards
+
 # The host reads `done` every CHECK_EVERY LM passes and CG steps and stops
 # once it is set; every process reads the same replicated value.
 CHECK_EVERY = 5

@@ -1,12 +1,14 @@
-"""Multi-process runtime on `torch.distributed`: bring-up, the landmark-shard
-layout and host I/O on the primary process.
+"""Multi-process runtime on `torch.distributed`: bring-up, the shard
+layouts and host I/O on the primary process.
 
-Counterpart of `uwslam_tpu.parallel.runtime`. Its `landmark_mesh` (a mesh
-axis over every device) becomes a `ShardLayout`: the landmark shards are a
-leading axis of one set of tensors in each process, `shards_per_process`
-of them, and the processes hold consecutive ranges of the global shard
-index, so `world * shards_per_process` shards in all, the partition the
-JAX package gets from as many devices.
+Counterpart of `uwslam_tpu.parallel.runtime`. A mesh axis over every
+device (`landmark_mesh`, and the one-axis meshes of the sequence and
+photometric paths) becomes a `ShardLayout`: the shards are a leading axis
+of one set of tensors in each process, `shards_per_process` of them, and
+the processes hold consecutive ranges of the global shard index, so
+`world * shards_per_process` shards in all, the partition the JAX package
+gets from as many devices. `grid_mesh`'s two-axis mesh becomes a
+`GridLayout`: the same shards read as a (rows, cols) grid.
 """
 from __future__ import annotations
 
@@ -60,11 +62,45 @@ class ShardLayout(NamedTuple):
 
 
 def landmark_layout(shards_per_process: int = 1) -> ShardLayout:
-    """The layout of landmark-sharded BA over every process of the group."""
+    """The layout of `shards_per_process` shards in every process of the
+    group: landmark-sharded BA's, and that of the sequence-sharded tracker
+    and the observer-sharded photometric BA."""
     if shards_per_process < 1:
         raise ValueError(f"shards_per_process must be >= 1, got {shards_per_process}")
     size, rank = world()
     return ShardLayout(local=shards_per_process, world=size, rank=rank)
+
+
+class GridLayout(NamedTuple):
+    """A (rows, cols) grid of the world's shards, row-major in the global
+    shard index: axis `axes[0]` runs over rows, `axes[1]` over columns."""
+
+    rows: int
+    cols: int
+    axes: tuple[str, str]
+    layout: ShardLayout
+
+    def coords(self, shard: int) -> tuple[int, int]:
+        """(row, column) of a global shard index."""
+        return divmod(shard, self.cols)
+
+    @property
+    def local_coords(self) -> list[tuple[int, int]]:
+        """(row, column) of each shard held here."""
+        return [self.coords(s) for s in self.layout.shards]
+
+
+def grid_mesh(rows: int, cols: int, axes=("kf", "lm")) -> GridLayout:
+    """A keyframe x landmark grid of rows * cols shards over the group (for
+    windows whose reduced camera system is itself sharded); every process
+    holds the same number of shards, so rows * cols must divide by the
+    world size."""
+    size, rank = world()
+    total = rows * cols
+    if rows < 1 or cols < 1 or total % size:
+        raise ValueError(f"a {rows} x {cols} grid does not divide over {size} processes")
+    return GridLayout(rows=rows, cols=cols, axes=tuple(axes),
+                      layout=ShardLayout(local=total // size, world=size, rank=rank))
 
 
 def is_primary() -> bool:

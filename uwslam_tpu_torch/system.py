@@ -1831,6 +1831,93 @@ class SlamSystem:
 
     # ------------------------------------------------------------ export
 
+    # ------------------------------------------------------------ session
+
+    def export_map_ply(self, path: str, max_points: int = 20000) -> int:
+        """Write the map as a PLY point cloud: every keyframe's valid tracked
+        points in the world frame (under its latest pose), subsampled to at
+        most `max_points` by a stride (uw-slam's point-cloud topic,
+        src/Visualizer.cpp:421-446). Returns the number of points written."""
+        from .viz import write_ply
+
+        clouds = []
+        for kf in self.keyframes.keyframes:
+            p = kf.points.p3d.reshape(-1, 3).cpu().numpy()[
+                kf.points.valid.reshape(-1).cpu().numpy()]
+            T = self._kf_poses.get(kf.frame_id)
+            T = np.asarray(kf.T_wc.cpu().numpy() if T is None else T)
+            clouds.append(p @ T[:3, :3].T + T[:3, 3])
+        if not clouds:
+            write_ply(path, np.zeros((0, 3), np.float32))
+            return 0
+        cloud = np.concatenate(clouds)
+        if len(cloud) > max_points:
+            step = -(-len(cloud) // max_points)
+            cloud = cloud[::step]
+        write_ply(path, cloud)
+        return len(cloud)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Save the session (`utils.checkpoint.save_session`, the JAX
+        package's keys, so either package resumes the other's file): the
+        frame counter, live pose and velocity, the trajectory's records and
+        the keyframe poses. The frames in flight, a keyframe match and a
+        window solve are retired first (`flush`)."""
+        from .utils.checkpoint import save_session
+
+        self.flush()
+        traj = self.trajectory
+        eye = np.eye(4, dtype=np.float32)
+        kf_ids = sorted(self._kf_poses)
+        save_session(path, {
+            "frame_id": np.asarray(self._frame_id),
+            "T_wc": self._T_wc.cpu().numpy(),
+            "velocity": self._velocity.cpu().numpy(),
+            "traj_ts": np.asarray([s.timestamp for s in traj]),
+            "traj_T": (np.stack([s.T_wc for s in traj]) if traj
+                       else np.zeros((0, 4, 4), np.float32)),
+            "traj_ref_kf": np.asarray([s.ref_kf_id for s in traj]),
+            "traj_T_kf": (np.stack([eye if s.T_kf_frame is None else s.T_kf_frame
+                                    for s in traj]) if traj
+                          else np.zeros((0, 4, 4), np.float32)),
+            "kf_ids": np.asarray(kf_ids),
+            "kf_poses": (np.stack([self._kf_poses[k] for k in kf_ids]) if kf_ids
+                         else np.zeros((0, 4, 4), np.float32)),
+        })
+
+    def resume_from(self, path: str) -> int:
+        """Restore a session saved by `save_checkpoint` (of either package)
+        -> the next frame index. Pyramids are not saved: the next frame is a
+        first frame (synchronous, a new keyframe at the restored pose), and
+        the trajectory, keyframe poses and live pose continue from the file.
+        The frame graphs' static inputs, which hold the previous session's
+        frames, are cleared; every replay copies its inputs in anew."""
+        from .utils.checkpoint import load_session
+
+        st = load_session(path)
+        self.flush()
+        self._frame_id = int(st["frame_id"])
+        self._T_wc = torch.from_numpy(np.asarray(st["T_wc"], np.float32)).to(self.device)
+        self._velocity = torch.from_numpy(np.asarray(st["velocity"], np.float32)).to(self.device)
+        self._kf_poses = {int(k): np.asarray(T, np.float32)
+                          for k, T in zip(st["kf_ids"], st["kf_poses"])}
+        self.trajectory = [
+            FrameState(
+                frame_id=i, timestamp=float(st["traj_ts"][i]),
+                T_wc=np.asarray(st["traj_T"][i], np.float32), tracked_inliers=0,
+                track_error=0.0, is_keyframe=False, ref_kf_id=int(st["traj_ref_kf"][i]),
+                T_kf_frame=np.asarray(st["traj_T_kf"][i], np.float32),
+            )
+            for i in range(len(st["traj_ts"]))
+        ]
+        self._prev = None          # the next frame re-bootstraps
+        self._prev_feats = None
+        self._pipe_broken = False
+        for key, step in self._steps.items():
+            if key[0] in ("plain", "boot"):
+                step.clear_inputs()
+        return self._frame_id
+
     def export_trajectory(self, path: str | None = None):
         """Per-frame poses recomposed against their reference keyframe's
         latest pose -> (timestamps (N,), poses (N, 4, 4)); written in TUM

@@ -436,7 +436,7 @@ def track(
     levels: tuple[int, ...] = (3, 2, 1, 0),
     max_iters: int | tuple[int, ...] = 10,
     weight_kind: WeightKind = WeightKind.HUBER,
-    mode: str = "ic",
+    mode: str = "fc",
     affine: bool = False,
 ) -> TrackResult:
     """Coarse-to-fine tracking of B pairs -> TrackResult with T (B, 4, 4)

@@ -79,7 +79,7 @@ def track_sequence_batched(
     num_points: int = 2048,
     max_iters: int | tuple[int, ...] = 10,
     block: int = 8,
-    mode: str = "ic",
+    mode: str = "fc",
     affine: bool = False,
 ):
     """Track frames (N, H, W) f32 -> (T_rel (N-1, 4, 4), inliers (N-1,),
