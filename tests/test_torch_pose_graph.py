@@ -13,7 +13,9 @@ compares rounding noise, and the JAX package's own count moves with the
 host's instruction set (drift case 16 / 13 / 26 / 26, gauge case 15 / 15 /
 13 / 13, Sim(3) case 23 / 23 / 24 / 24 under XLA's default, AVX2, AVX and
 SSE4_2 code). The full solves are held to the same poses and to both
-stopping before `max_iters` (the termination rule fired).
+stopping before `max_iters` (the termination rule fired). In float64 both
+packages follow each other pass for pass and stop on costs within 64 ulp
+(see `test_float64_solves_follow_jax_pass_for_pass`).
 """
 import numpy as np
 import pytest
@@ -190,3 +192,53 @@ def test_add_loop_edge_and_odometry_edges_match_jax():
                                      torch.from_numpy(np.asarray(T[0]))), weight=2.0)
     for a, b in zip(p, g):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+F64_PASSES = {"se3-drift": 4, "se3-gauge": 4, "sim3": 6}   # passes that change the cost
+F64_ULP = np.finfo(np.float64).eps
+
+
+def _float64_solves(case, max_iters):
+    """Both solvers in float64 on the f32 graph's values (the JAX package
+    under `jax.enable_x64`) -> (port result, JAX's (T_wc, cost, iterations))."""
+    graph, is_sim3 = CASES[case]()
+    port = pg.optimize_pose_graph_sim3 if is_sim3 else pg.optimize_pose_graph
+    ref = jpg.optimize_pose_graph_sim3 if is_sim3 else jpg.optimize_pose_graph
+    host = [np.asarray(x) for x in graph]
+    with jax.enable_x64(True):
+        g64 = type(graph)(*[jnp.asarray(x, jnp.float64 if x.dtype == np.float32 else x.dtype)
+                            for x in host])
+        want = ref(g64, max_iters=max_iters)
+        assert want.T_wc.dtype == jnp.float64
+        want = [np.asarray(x) for x in (want.T_wc, want.cost, want.iterations)]
+    p = _port(graph, is_sim3)
+    out = port(type(p)(*[x.double() if x.dtype == torch.float32 else x for x in p]),
+               max_iters=max_iters)
+    assert out.T_wc.dtype == torch.float64
+    return out, want
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_float64_solves_follow_jax_pass_for_pass(case):
+    """In float64 the solves agree pass for pass while the cost falls (poses
+    within 1e-10, costs within 64 ulp of the initial cost; the final poses
+    measured 2e-16 to 7e-16 apart), and both stop by their own rule. The SE(3) cases
+    stop after the same number of passes (4 and 4 under XLA's default,
+    AVX2, AVX and SSE4_2 code). The Sim(3) case ends on a cost of 3.32, and
+    its last accept test compares candidates 2 ulp apart: the JAX package's
+    own count is 7 under the default code and 12 under AVX2 (passes 7-11
+    rejected), the port's 7. So the f32 counts of ROADMAP section 3's fault 4
+    part by rounding, not by an accept or stop rule."""
+    for k in range(1, F64_PASSES[case] + 1):
+        out, want = _float64_solves(case, k)
+        assert int(out.iterations) == int(want[2]) == k
+        np.testing.assert_allclose(out.T_wc.numpy(), want[0], atol=1e-10)
+        np.testing.assert_allclose(float(out.cost), float(want[1]), rtol=0,
+                                   atol=64 * F64_ULP * float(out.initial_cost))
+    out, want = _float64_solves(case, 40)
+    assert int(out.iterations) < 40 and int(want[2]) < 40
+    np.testing.assert_allclose(float(out.cost), float(want[1]), rtol=0,
+                               atol=64 * F64_ULP * float(out.initial_cost))
+    np.testing.assert_allclose(out.T_wc.numpy(), want[0], atol=1e-10)
+    if case != "sim3":
+        assert int(out.iterations) == int(want[2])

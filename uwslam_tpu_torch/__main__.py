@@ -1,0 +1,5 @@
+"""`python -m uwslam_tpu_torch`: the command line (`cli.main`)."""
+from .cli.main import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

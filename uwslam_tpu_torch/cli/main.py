@@ -415,8 +415,9 @@ def run_live(args, system, seq, viz=None) -> None:
               f"first {warmup} frames excluded)", file=sys.stderr)
     if system.ba_stats["runs"]:
         bs = system.ba_stats
-        print(f"window BA: {bs['iters']} LM iters over {bs['runs']} runs, "
-              f"{bs['time']:.2f}s of host time", file=sys.stderr)
+        print(f"window BA: {bs['iters']} LM iters over {bs['runs']} runs in "
+              f"{bs['time']:.2f}s ({bs['iters'] / max(bs['time'], 1e-9):.1f} iters/s)",
+              file=sys.stderr)
     if args.loop_closure and system._loops is not None:
         print(f"loop closure: {len(system._loops.loop_edges)} edges accepted", file=sys.stderr)
     if args.dist_ba:

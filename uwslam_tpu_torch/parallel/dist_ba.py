@@ -202,8 +202,9 @@ def _local_shards(problem: BAProblem, layout: ShardLayout):
     kf_pad = torch.cat([obs_kf, torch.full((S, 1), -1, dtype=obs_kf.dtype, device=dev)], dim=1)
     lm_kf = torch.gather(kf_pad, 1, lm_rows.reshape(S, -1)).reshape(lm_rows.shape)
     shards = _Shards(obs_kf=obs_kf, obs_lm=obs_lm, obs_uv=pick(problem.obs_uv, 0.0),
-                     obs_valid=obs_valid, inc_kf=(obs_kf[..., None] == arange_m).float(),
-                     lm_rows=lm_rows, lm_kf=(lm_kf[..., None] == arange_m).float())
+                     obs_valid=obs_valid,
+                     inc_kf=(obs_kf[..., None] == arange_m).to(problem.T_cw.dtype),
+                     lm_rows=lm_rows, lm_kf=(lm_kf[..., None] == arange_m).to(problem.T_cw.dtype))
     points = problem.points[first * Ls:(first + S) * Ls].reshape(S, Ls, 3)
     return shards, points
 

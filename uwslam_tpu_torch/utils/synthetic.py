@@ -4,7 +4,8 @@ Counterpart of `smooth_texture`, `fractal_texture`, `render_plane_view`,
 `render_plane_view_distorted`, `plane_depth`, the two-depth scene
 (`render_two_plane_view`, `two_plane_depth`), the multi-plane scene
 (`PlaneSpec`, `make_plane`, `default_scene`, `render_scene_view`,
-`scene_depth`) and `apply_photometric` in `uwslam_tpu.utils.synthetic`. The
+`scene_depth`, `render_scene_view_distorted`), `apply_photometric`,
+`depth_holes` and `orbit_trajectory` in `uwslam_tpu.utils.synthetic`. The
 JAX package draws the texture's sinusoid coefficients from `jax.random`
 with a seed; the port carries the seed-0 coefficients (the benchmark scene)
 as literals, so both packages render the same scene.
@@ -136,22 +137,32 @@ def apply_photometric(image: torch.Tensor, generator: torch.Generator | None = N
     return torch.clamp(img, 0.0, 255.0)
 
 
+def _normalized_grid(cam: PinholeCamera, dev, dt) -> torch.Tensor:
+    """Every pixel's normalized coordinate ((u - cx) / fx, (v - cy) / fy):
+    (H, W, 2)."""
+    v, u = torch.meshgrid(
+        torch.arange(cam.height, dtype=dt, device=dev),
+        torch.arange(cam.width, dtype=dt, device=dev),
+        indexing="ij",
+    )
+    return torch.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy], dim=-1)
+
+
+def _unit_z(xy: torch.Tensor) -> torch.Tensor:
+    """Rays (..., 3) with unit z through normalized coordinates (..., 2)."""
+    return torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
+
+
 def _plane_hit(cam: PinholeCamera, T_cam_world: torch.Tensor, plane_z: float,
                undistort: bool = False):
     """Ray parameter t and world (x, y) where each pixel's ray meets the
     plane z = plane_z; T_cam_world (..., 4, 4) -> (..., H, W) each. With
     undistort=True a pixel's ray is its undistorted normalized coordinate
     (the pixels are those of the raw, distorted image)."""
-    dev, dt = T_cam_world.device, T_cam_world.dtype
-    v, u = torch.meshgrid(
-        torch.arange(cam.height, dtype=dt, device=dev),
-        torch.arange(cam.width, dtype=dt, device=dev),
-        indexing="ij",
-    )
-    xy = torch.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy], dim=-1)
+    xy = _normalized_grid(cam, T_cam_world.device, T_cam_world.dtype)
     if undistort:
         xy = cam.undistort_normalized(xy)
-    d = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)   # (H, W, 3)
+    d = _unit_z(xy)   # (H, W, 3)
     T_world_cam = se3.inverse(T_cam_world)
     o_w = se3.translation(T_world_cam)[..., None, None, :]  # (..., 1, 1, 3)
     d_w = torch.einsum("...ij,hwj->...hwi", se3.rotation(T_world_cam), d)
@@ -292,17 +303,16 @@ def default_scene() -> tuple[PlaneSpec, ...]:
     )
 
 
-def _raycast_scene(cam: PinholeCamera, T_cam_world: torch.Tensor, scene):
+def _raycast_scene(cam: PinholeCamera, T_cam_world: torch.Tensor, scene,
+                   rays: torch.Tensor | None = None):
     """Nearest hit of every pixel's ray: (t, px, py, plane index), each
     (H, W); t is the ray parameter, equal to the camera-frame depth (rays
-    have unit z); index -1 where nothing is hit."""
+    have unit z); index -1 where nothing is hit. `rays` (H, W, 3) overrides
+    the pinhole grid (a distorted camera's rays)."""
     dev, dt = T_cam_world.device, T_cam_world.dtype
-    v, u = torch.meshgrid(
-        torch.arange(cam.height, dtype=dt, device=dev),
-        torch.arange(cam.width, dtype=dt, device=dev),
-        indexing="ij",
-    )
-    d = torch.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, torch.ones_like(u)], dim=-1)
+    if rays is None:
+        rays = _unit_z(_normalized_grid(cam, dev, dt))
+    d = rays
     T_world_cam = se3.inverse(T_cam_world)
     twc = se3.translation(T_world_cam)
     d_w = torch.einsum("ij,hwj->hwi", se3.rotation(T_world_cam), d)
@@ -338,7 +348,12 @@ def render_scene_view(cam: PinholeCamera, T_cam_world: torch.Tensor,
     T_cam_world (4, 4): nearest-hit ray cast against every plane, each with
     its own texture (at 3 x the plane coordinates); 0 where nothing is hit."""
     scene = default_scene() if scene is None else scene
-    t, px, py, idx = _raycast_scene(cam, T_cam_world, scene)
+    return _shade(scene, *_raycast_scene(cam, T_cam_world, scene))
+
+
+def _shade(scene, t, px, py, idx) -> torch.Tensor:
+    """Each pixel's texture value on the plane it hit (3 x the plane
+    coordinates); 0 where nothing is hit."""
     img = torch.zeros_like(t)
     for i, pl in enumerate(scene):
         texture = fractal_texture if isinstance(pl.texture, FractalTexture) else smooth_texture
@@ -353,3 +368,47 @@ def scene_depth(cam: PinholeCamera, T_cam_world: torch.Tensor,
     scene = default_scene() if scene is None else scene
     t, _, _, idx = _raycast_scene(cam, T_cam_world, scene)
     return torch.where(idx >= 0, t, 0.0)
+
+
+def render_scene_view_distorted(cam: PinholeCamera, T_cam_world: torch.Tensor,
+                                scene: tuple[PlaneSpec, ...] | None = None) -> torch.Tensor:
+    """`render_scene_view` as a distorted camera sees it (`cam` carries the
+    radtan coefficients): each raw pixel's ray is the undistorted normalized
+    coordinate. The EUROC-style input of the rectification path on
+    occluding geometry."""
+    scene = default_scene() if scene is None else scene
+    xy = cam.undistort_normalized(_normalized_grid(cam, T_cam_world.device, T_cam_world.dtype))
+    return _shade(scene, *_raycast_scene(cam, T_cam_world, scene, rays=_unit_z(xy)))
+
+
+def depth_hole_mask(uniforms: torch.Tensor, shape: tuple[int, int], hole_frac: float,
+                    block: int) -> torch.Tensor:
+    """The blocks of `depth_holes` knocked out by (Hb, Wb) uniforms in
+    [0, 1): a block is dropped where its uniform is below `hole_frac`;
+    -> (H, W) bool, each block `block` pixels square, cut to `shape`."""
+    drop = uniforms < hole_frac
+    full = drop.repeat_interleave(block, 0).repeat_interleave(block, 1)
+    return full[:shape[0], :shape[1]]
+
+
+def depth_holes(depth: torch.Tensor, generator: torch.Generator | None = None,
+                hole_frac: float = 0.2, block: int = 16) -> torch.Tensor:
+    """Knock out random blocks of a depth map (0 is invalid): the holes real
+    TUM depth images carry at occlusion boundaries and on reflective
+    surfaces. `hole_frac` is the expected fraction of blocks lost. The
+    uniforms come from `generator` (on the depth's device), so the blocks
+    are reproducible but not the JAX package's draw."""
+    H, W = depth.shape
+    u = torch.rand((-(-H // block), -(-W // block)), generator=generator, device=depth.device)
+    return torch.where(depth_hole_mask(u, (H, W), hole_frac, block), 0.0, depth)
+
+
+def orbit_trajectory(num_frames: int, radius: float = 0.05, step: float = 0.02,
+                     device=None) -> torch.Tensor:
+    """A gentle camera path: slow sideways drift and a little yaw ->
+    (num_frames, 4, 4) camera-from-world poses."""
+    i = torch.arange(num_frames, dtype=torch.float32, device=device)
+    xi = torch.stack([radius * torch.sin(0.3 * i),
+                      0.5 * radius * torch.cos(0.21 * i) - 0.5 * radius,
+                      step * 0.3 * i, 0.002 * i, 0.015 * torch.sin(0.2 * i), 0.003 * i], dim=-1)
+    return se3.exp(xi)
