@@ -208,6 +208,23 @@ fails. Phases, one line each:
    each kernel's launches per config; eval.py's health checks that every
    JAX CLI run of those frames passes are asserted, those one fails too
    printed beside their figures; K1, `lm_evaluate` and K3 launched.
+25. The measuring tools at their full design points, in a process of
+   their own (see `phase_tools_fresh`), with reduced repetitions (1 timed
+   call per budget stage, 1 profiled attribution chunk, 1 solve per shard
+   count): (a)
+   `uwslam_tpu_torch.offline_budget` on the bench chunk (the stages' device
+   busy times, pyramid + selection + all track levels, within 3% of the
+   whole chunk's; the chunk's launches 11,110, of which a profile may lose
+   up to 3 records; its ATE within 1 mm); (b)
+   `attribute_trace` (the rows, the rows under the threshold
+   and the unattributed time equal the profiler's kernel time within 1%, at
+   most 2% unattributed; K1, K2, K3 and `lm_evaluate` by name under their
+   wrappers' files with 5 / 5 / 3 / 32 launches per chunk, as the wrappers
+   count them); (c) `scaling` with one solve per shard count (every row 30
+   iterations, finite, the final cost within 1e-3 relative across a curve's
+   shard counts); (d) the chunk's host ms per launch without and with
+   `ops._lib.launch_ranges()` (the profiler ranges the attribution opens
+   around the hand-written kernels' launches), in turns.
 
 Every phase line ends in its seconds and the script's running total.
 
@@ -226,6 +243,7 @@ import contextlib
 import hashlib
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -239,12 +257,11 @@ import torch
 
 from uwslam_tpu_torch.micro import (  # the card's bound and the kernels' operation counts
     BLEND_FLOPS,
-    K1_FLOPS,
-    LM_FLOPS_FC,
-    LM_FLOPS_IC,
     TAPS_FLOPS,
-    WARP_FLOPS,
     bound,
+    bound_lm_evaluate,
+    bound_sampler,
+    bound_scharr,
     grid_sample_call,
 )
 
@@ -401,36 +418,6 @@ def kernels_table():
          "source": "uwslam_tpu_torch/csrc/lm_evaluate.cu",
          "replaces": "uwslam_tpu/ops/pallas_track.py:40"},
     ]
-
-
-def bound_scharr(images) -> dict:
-    """One plane read, three written."""
-    return bound(images.numel() * 4 * 4, images.numel() * K1_FLOPS)
-
-
-def bound_sampler(ok, C: int, point_bytes: int) -> dict:
-    """K2 (12 B of point, 64 B of pose per pair) or K3 (8 B of uv): each
-    point and its validity byte once, and for this run's valid points the
-    four taps and the sample of every channel."""
-    B, N = ok.shape
-    n_ok = int(ok.sum())
-    n_bytes = B * N * (point_bytes + 1) + n_ok * (16 * C + 4 * C)
-    if point_bytes == 12:
-        n_bytes += B * 64
-    flops = n_ok * ((WARP_FLOPS if point_bytes == 12 else 0) + TAPS_FLOPS + BLEND_FLOPS * C)
-    return bound(n_bytes, flops)
-
-
-def bound_lm_evaluate(pts_valid, ok, fc: bool) -> dict:
-    """Per point 12 B and the validity byte; per reference-valid point the
-    projection decides; per valid point the reference intensity (4 B), the
-    taps (IC 16 B, FC 48 B of the texels' three channels) and in IC the
-    Jacobian row (24 B); per pair the pose (64 B), sigma (4 B) and the 45
-    sums written. IC with every point valid: 57 B per point."""
-    B, N = ok.shape
-    n_ok = int((pts_valid & ok).sum())
-    n_bytes = B * N * 13 + n_ok * (4 + (48 if fc else 16 + 24)) + B * (64 + 4 + 45 * 4)
-    return bound(n_bytes, n_ok * (LM_FLOPS_FC if fc else LM_FLOPS_IC))
 
 
 def exact_coordinate(f: float, c: float, target: int) -> tuple[float, float]:
@@ -3208,6 +3195,147 @@ def phase_eval_configs(table) -> dict:
     return out
 
 
+# Phase 25: the measuring tools.
+BUDGET_STAGE_SUM_RTOL = 3e-2   # pyramid + select + track busy against the whole chunk's
+CHUNK_LAUNCHES = 11110         # the chunk's kernels (PRs 3-9)
+# A profile can come back short of a kernel record or two: three profiles of
+# the same chunk read 11,110, 11,109 and 11,109 on an H100.
+PROFILE_RECORDS_LOST = 3
+ATTR_TOTAL_RTOL = 1e-2
+ATTR_UNATTRIBUTED_MAX = 0.02   # share of the kernel time
+ATTR_CHUNKS = 1                # profiled chunks here (the tool's default is 3)
+WRAPPER_FILES = {"scharr": ("scharr_kernel", "uwslam_tpu_torch/ops/cuda_pyramid.py", 5),
+                 "warp_sample": ("warp_sample_kernel", "uwslam_tpu_torch/ops/cuda_track.py", 5),
+                 "bilinear_sample": ("bilinear_sample_kernel",
+                                     "uwslam_tpu_torch/ops/cuda_sample.py", 3),
+                 "lm_evaluate": ("lm_evaluate_kernel", "uwslam_tpu_torch/ops/cuda_track.py", 32)}
+SCALING_RUNS = 1               # solves per shard count here (the tool's default is 3)
+SCALING_COST_RTOL = 1e-3       # final cost across a curve's shard counts
+BUDGET_REPS = 1                # timed calls per stage here (the tool's default is 10)
+RANGE_CHUNKS = 2               # chunks per turn of phase 25(d)
+TOOLS_TIMEOUT_S = 300
+
+
+def phase_tools_fresh() -> dict:
+    """Phase 25 in a process of its own (`--tools`, below): in a process that
+    has taken many profiles the profiler comes back short of the first
+    kernel records of a window (phase 23's trace: 3 Scharr records; phase 25
+    run after phase 24 in one process: ~64 records per window, the chunk's
+    Scharr launches among them, on an H100), while a fresh process gives
+    whole profiles."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "tools.json"
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tools", str(out)],
+                              capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 25 failed (exit {proc.returncode}):\n"
+                                 f"{proc.stdout[-4000:]}\n{proc.stderr[-12000:]}")
+        return json.loads(out.read_text())
+
+
+def tools_process(out: str) -> None:
+    """Body of the `--tools` process: phase 25 on the bench frames, its
+    result to `out`."""
+    from uwslam_tpu_torch import bench
+
+    poses = bench.bench_poses(device=torch.device("cuda", 0))
+    Path(out).write_text(json.dumps(phase_tools(bench.bench_frames(poses), poses, kernels_table()),
+                                    default=str))
+
+
+def phase_tools(frames, poses, table) -> dict:
+    """Phase 25: the three measuring tools on the card, and the cost of the
+    launcher's profiler range."""
+    from uwslam_tpu_torch import attribute_trace, bench, offline_budget, scaling
+    from uwslam_tpu_torch.ops import _lib
+
+    cam = bench.CAM
+    out, misses = {}, []
+    t0 = time.perf_counter()
+    budget = offline_budget.budget(frames, poses, cam, reps=BUDGET_REPS)
+    full = budget["budget"][-1]
+    gap = budget["stage_sum"]["relative_gap"]
+    if not abs(gap) <= BUDGET_STAGE_SUM_RTOL:
+        misses.append(f"budget: stages' busy {budget['stage_sum']['stages_busy_ms']} ms against "
+                      f"the chunk's {full['device_busy_ms']} ms ({gap:+.4f})")
+    if not CHUNK_LAUNCHES - PROFILE_RECORDS_LOST <= full["launches"] <= CHUNK_LAUNCHES:
+        misses.append(f"budget: the profile holds {full['launches']} kernels of the chunk, "
+                      f"not {CHUNK_LAUNCHES} (less at most {PROFILE_RECORDS_LOST} lost records)")
+    if not budget["ate_m"] <= ATE_MAX:
+        misses.append(f"budget: chunk ATE {budget['ate_m']} m > {ATE_MAX}")
+    out["budget"] = {"rows": [{k: r[k] for k in ("stage", "ms_per_chunk", "device_busy_ms",
+                                                 "launches", "idle_share")}
+                              for r in budget["budget"]],
+                     **{k: budget[k] for k in ("fps_serial", "fps_pipelined", "ate_m",
+                                               "stage_sum")},
+                     "s": round(time.perf_counter() - t0, 1)}
+
+    t0 = time.perf_counter()
+    attr, launches = counted(table, "attribute_trace", lambda: attribute_trace.attribute(
+        frames, cam, chunks=ATTR_CHUNKS))
+    total = attr["device_busy_ms_per_chunk"]
+    summed = (sum(r["ms_per_chunk"] for r in attr["attribution"])
+              + attr["below_row_ms_per_chunk"] + attr["unattributed_ms_per_chunk"])
+    if not abs(summed / total - 1.0) <= ATTR_TOTAL_RTOL:
+        misses.append(f"attribution: rows sum to {summed} ms, the profiler's total {total} ms")
+    if not attr["unattributed_ms_per_chunk"] <= ATTR_UNATTRIBUTED_MAX * total:
+        misses.append(f"attribution: {attr['unattributed_ms_per_chunk']} ms unattributed of "
+                      f"{total} ms")
+    per_chunk = {}
+    for name, (symbol, wrapper, want) in WRAPPER_FILES.items():
+        rows = [r for r in attr["hand_written"]
+                if symbol in r["op"] and r["source"].split(":")[0] == wrapper]
+        per_chunk[name] = sum(r["launches"] for r in rows)
+        counted_per_chunk = launches[name] / (ATTR_CHUNKS + 1)     # and the warm-up chunk
+        if not per_chunk[name] == want == counted_per_chunk:
+            misses.append(f"attribution: {name} {per_chunk[name]} launches per chunk under "
+                          f"{wrapper}, the wrapper counted {counted_per_chunk}, want {want}")
+    out["attribution"] = {
+        "top": attr["attribution"][:12], "hand_written": attr["hand_written"],
+        **{k: attr[k] for k in ("device_span_ms_per_chunk", "device_busy_ms_per_chunk",
+                                "unattributed_ms_per_chunk", "below_row_ms_per_chunk")},
+        "launches_per_chunk": per_chunk, "launches": launches,
+        "s": round(time.perf_counter() - t0, 1)}
+
+    t0 = time.perf_counter()
+    curves = scaling.curves(torch.device("cuda", 0), runs=SCALING_RUNS)
+    for label, curve in curves.items():
+        rows = curve["scaling"]
+        bad = [r["devices"] for r in rows if r["iterations"] != scaling.MAX_ITERS
+               or not all(math.isfinite(r[k]) for k in ("seconds", "cost_initial", "cost_final"))]
+        if bad:
+            misses.append(f"scaling {label}: shard counts {bad} not {scaling.MAX_ITERS} finite "
+                          "iterations")
+        if not curve["cost_final_spread"] <= SCALING_COST_RTOL:
+            misses.append(f"scaling {label}: final costs spread {curve['cost_final_spread']}")
+    out["scaling"] = {label: {"spread": c["cost_final_spread"], "rows": [
+        {k: r[k] for k in ("devices", "iterations", "seconds", "iters_per_sec",
+                           "work_division_pct", "cost_final", "max_memory_allocated")}
+        for r in c["scaling"]]} for label, c in curves.items()}
+    out["scaling"]["s"] = round(time.perf_counter() - t0, 1)
+
+    def chunk_ms():
+        ms = []
+        for _ in range(RANGE_CHUNKS):
+            t = time.perf_counter()
+            offline_budget.full_chunk(frames, cam)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+        return ms
+
+    turns = {"no_ranges": [], "launch_ranges": []}
+    for name in ("no_ranges", "launch_ranges", "launch_ranges", "no_ranges"):
+        with _lib.launch_ranges() if name == "launch_ranges" else contextlib.nullcontext():
+            turns[name] += chunk_ms()
+    out["launch_range"] = {name: {"chunk_ms_median": statistics.median(ms),
+                                  "chunk_ms_spread": [min(ms), max(ms)],
+                                  "host_ms_per_launch": statistics.median(ms) / CHUNK_LAUNCHES}
+                           for name, ms in turns.items()}
+    if misses:
+        raise AssertionError(f"phase 25: {misses}; {json.dumps(out, default=str)}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card is visible; nothing was run")
@@ -3361,6 +3489,8 @@ def main() -> None:
         + "; per call at entry()'s shapes: " + json.dumps(entry_times) + f"; {gpu}")
     evaluated = phase_eval_configs(table)
     say("24 eval.py's configs 0-4 and 8-10 (full size)", json.dumps(evaluated) + f"; {gpu}")
+    tools = phase_tools_fresh()
+    say("25 measuring tools", json.dumps(tools) + f"; {gpu}")
 
     live_k = live_times["kernels_at_live_shapes"]
     depth_launches = {k["name"]: sum(depth_paths[path]["launches"][k["name"]]
@@ -3383,6 +3513,7 @@ def main() -> None:
          "launches_entry": entry_launches[k["name"]],
          "launches_eval": {c: evaluated[f"config{c}"]["launches"][k["name"]]
                            for c in EVAL_CONFIGS},
+         "launches_attribute_trace": tools["attribution"]["launches"][k["name"]],
          "max_abs_err": max(e[k["name"]] for e in (
              errs, errs_live, errs_seq, rectified["parity_max_abs_err"], entry_errs)),
          "ms": times[k["name"]]["device_ms"],
@@ -3431,7 +3562,7 @@ def main() -> None:
                     "launches_photo_sharded": {
                         D: photo_sharded[f"shards_{D}"]["k3_launches"]
                         for D in PHOTO_SHARD_COUNTS}})
-    say("total", f"phases 1-24 passed; {gpu}")
+    say("total", f"phases 1-25 passed; {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
@@ -3444,5 +3575,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-config5"]:
         cpu_config5(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--tools"]:
+        tools_process(sys.argv[2])
     else:
         main()

@@ -1,13 +1,14 @@
 """Some phases of `chip_smoke.py` alone. Phases 21, 22, 23, 15 and 17 run
 beside the port's CPU run of config 5 over the quick sequence (phase 20's,
 which loads the host while they run); phase 20 (configs 5-7, with that CPU
-run of its own) and phase 24 (eval.py's configs 0-4 and 8-10 at full size)
+run of its own), phase 24 (eval.py's configs 0-4 and 8-10 at full size) and
+phase 25 (the measuring tools: offline budget, attribution, scaling curve)
 run after them, alone. `frames DIR [NAME ...]` renders those phases' data
 on the card instead, under eval.py's directory names, and runs nothing.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit: `python scripts/chip_phases.py [21] [22] [23] [15] [17] [20] [24]`
-(default: all seven, ~14 minutes on an H100). It prints the card's name and
+toolkit: `python scripts/chip_phases.py [21] [22] [23] [15] [17] [20] [24] [25]`
+(default: all eight, ~16 minutes on an H100). It prints the card's name and
 power limit, then one line per phase with its JSON result, its seconds and
 the running total, and the CPU run of config 5 and its health check after
 the phases it ran beside; the first failing phase stops it with a non-zero
@@ -37,7 +38,7 @@ from uwslam_tpu_torch import bench  # noqa: E402
 from uwslam_tpu_torch.ops import _lib  # noqa: E402
 
 BESIDE_CPU_RUN = ("21", "22", "23", "15", "17")
-ALONE = ("20", "24")
+ALONE = ("20", "24", "25")
 PHASES = BESIDE_CPU_RUN + ALONE
 
 
@@ -100,6 +101,8 @@ def main(which) -> None:
         cs.say("20", json.dumps(cs.phase_loop_configs(table), default=str))
     if "24" in which:
         cs.say("24", json.dumps(cs.phase_eval_configs(table), default=str))
+    if "25" in which:
+        cs.say("25", json.dumps(cs.phase_tools_fresh()))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """Per-operation micro benchmark of the port on one card: device time beside
 the card's bound.
 
-    python -m uwslam_tpu_torch.micro [--out MICRO_TORCH_r09.json] [--platform cuda|cpu]
+    python -m uwslam_tpu_torch.micro [--out MICRO_TORCH_r10.json] [--platform cuda|cpu]
 
 Counterpart of `benchmarks/micro.py` (the JAX package's, whose op list and
 shapes it keeps: a batch of 96 frames of 480 x 640, 2048 points per frame,
-65,536 twists). Each op is timed by device time: one warm-up call, then
+65,536 twists), with K1 on the offline pyramid's coarser levels and the
+kernels at the rectified EUROC shapes (`k1_level_cases`, `euroc_cases`). Each op is timed by device time: one warm-up call, then
 `REPS` calls under `torch.profiler`, the sum of the kernels' device time
 over them divided by `REPS` (CUDA events around back-to-back calls where a
 profile records no kernel, marked so). Its bound is the larger of the bytes
@@ -33,6 +34,8 @@ F32_FLOP_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
 B, H, W = 96, 480, 640
 N_PTS = 2048
 N_TWISTS = 65536
+EUROC_W, EUROC_H = 736, 480              # eval.py's EUROC calibration, rectified size
+EUROC_F = (458.654, 457.296)             # its pinhole focal lengths
 REPS = 20
 # Operations per output element, counted from the kernels' sources: K1 per
 # pixel; K2, K3 per valid point (warp 18, projection 6, taps 10, blend 13 per
@@ -54,9 +57,10 @@ def bound(n_bytes: float, flops: float) -> dict:
             "bytes": n_bytes, "flops": flops}
 
 
-def device_ms(fn, reps: int = REPS, attempts: int = 3) -> tuple[float, str]:
-    """(device ms per call, timer): the profiler's kernel time over `reps`
-    calls after a warm-up call; CUDA events if no profile records a kernel."""
+def kernel_profile(fn, reps: int = REPS, attempts: int = 3) -> tuple[float, float] | None:
+    """(device ms, kernel launches) per call of fn: the profiler's kernel time
+    and kernel count over `reps` calls after a warm-up call; None where no
+    one of `attempts` profiles records a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -67,10 +71,19 @@ def device_ms(fn, reps: int = REPS, attempts: int = 3) -> tuple[float, str]:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in kernels)
         if us > 0:
-            return us / 1e3 / reps, "profiler"
+            return us / 1e3 / reps, sum(e.count for e in kernels) / reps
+    return None
+
+
+def device_ms(fn, reps: int = REPS, attempts: int = 3) -> tuple[float, str]:
+    """(device ms per call, timer): the profiler's kernel time over `reps`
+    calls after a warm-up call; CUDA events if no profile records a kernel."""
+    profiled = kernel_profile(fn, reps, attempts)
+    if profiled is not None:
+        return profiled[0], "profiler"
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -90,11 +103,106 @@ def grid_sample_call(stack, uv):
         stack, grid, mode="bilinear", padding_mode="zeros", align_corners=True)[:, :, 0]
 
 
-def sampler_bound(ok, C: int) -> dict:
-    """K3: uv (8 B) and the validity byte per point; per valid point the four
-    taps of every channel (16 B each) and its sample (4 B)."""
+def bound_sampler(ok, C: int, point_bytes: int) -> dict:
+    """K2 (12 B of point, 64 B of pose per pair) or K3 (8 B of uv): each
+    point and its validity byte once, and for this run's valid points the
+    four taps and the sample of every channel."""
+    B, N = ok.shape
     n_ok = int(ok.sum())
-    return bound(ok.numel() * 9 + n_ok * 20 * C, n_ok * (TAPS_FLOPS + BLEND_FLOPS * C))
+    n_bytes = B * N * (point_bytes + 1) + n_ok * (16 * C + 4 * C)
+    if point_bytes == 12:
+        n_bytes += B * 64
+    flops = n_ok * ((WARP_FLOPS if point_bytes == 12 else 0) + TAPS_FLOPS + BLEND_FLOPS * C)
+    return bound(n_bytes, flops)
+
+
+def bound_lm_evaluate(pts_valid, ok, fc: bool) -> dict:
+    """Per point 12 B and the validity byte; per reference-valid point the
+    projection decides; per valid point the reference intensity (4 B), the
+    taps (IC 16 B, FC 48 B of the texels' three channels) and in IC the
+    Jacobian row (24 B); per pair the pose (64 B), sigma (4 B) and the 45
+    sums written. IC with every point valid: 57 B per point."""
+    B, N = ok.shape
+    n_ok = int((pts_valid & ok).sum())
+    n_bytes = B * N * 13 + n_ok * (4 + (48 if fc else 16 + 24)) + B * (64 + 4 + 45 * 4)
+    return bound(n_bytes, n_ok * (LM_FLOPS_FC if fc else LM_FLOPS_IC))
+
+
+def bound_scharr(images) -> dict:
+    """K1: one plane read, three written."""
+    return bound(images.numel() * 4 * 4, images.numel() * K1_FLOPS)
+
+
+def k1_level_cases(frames) -> list[dict]:
+    """K1 on the offline pyramid's levels 1-4 (96 x 240 x 320 ... 96 x 30 x
+    40 at the default batch), each level the 2 x 2 mean of the one above."""
+    from . import ops
+    from .image.pyramid import downsample2x
+
+    out, img = [], frames
+    for level in range(1, 5):
+        img = downsample2x(img)
+        b, h, w = img.shape
+        out.append({"op": f"scharr_l{level}(b{b},{h}x{w})", "kernel": "K1",
+                    "fn": lambda i=img: ops.scharr_gradients_batched(i),
+                    "plain": lambda i=img: ops.scharr_plain(i), **bound_scharr(img)})
+    return out
+
+
+def euroc_cases(dev) -> list[dict]:
+    """The kernels at the rectified EUROC shapes that eval.py's configs 3, 4
+    and 8-10 run (one 480 x 736 frame, B = 1): K1 on its 5 levels; at level
+    0 K2 on the target's texels (C = 3: config 3's `--affine` path), K3 on
+    the texels at the points (C = 3, as the depth refinement samples) and
+    `lm_evaluate` FC (Huber), for 2048 top-K points of a plane frame pair
+    at the bench's relative pose."""
+    from . import bench, ops
+    from .camera.model import PinholeCamera
+    from .image.pyramid import build_pyramid
+    from .lie import se3
+    from .tracking.points import topk_gradient_points
+    from .tracking.robust import WeightKind, mad_sigma
+
+    cam = PinholeCamera(fx=EUROC_F[0], fy=EUROC_F[1], cx=(EUROC_W - 1) / 2.0,
+                        cy=(EUROC_H - 1) / 2.0, width=EUROC_W, height=EUROC_H)
+    poses = bench.bench_poses(2, device=dev)
+    frames = bench.bench_frames(poses, cam)
+    ref, tgt = (build_pyramid(frames[i], levels=bench.LEVELS) for i in (0, 1))
+    pts = topk_gradient_points(ref.images[0], ref.grad_mag[0], cam, num_points=N_PTS,
+                               mono_z=bench.MONO_Z)
+    T = se3.compose(poses[1:], se3.inverse(poses[:1])).contiguous()
+    planes = (tgt.images[0], tgt.grad_x[0], tgt.grad_y[0])
+    texels, stacked = ops.pack_texels(*planes), torch.stack(planes, dim=1)
+    ok2 = ops.warp_and_sample(texels, pts.p3d, T, cam, texels=True)[1]
+    ok3 = ops.cuda_bilinear_sample(texels, pts.uv, texels=True)[1]
+    vals, ok = ops.warp_and_sample(tgt.images[0][:, None], pts.p3d, T, cam)
+    valid = pts.valid & ok
+    sigma = mad_sigma(torch.where(valid, vals[:, 0] - pts.intensity, 0.0), valid)
+    lm_args = (pts.intensity, pts.valid, sigma, cam, WeightKind.HUBER)
+    evaluator = ops.LMEvaluator(texels, pts.p3d, *lm_args)
+    out = []
+    for level, img in enumerate(ref.images):
+        _, h, w = img.shape
+        out.append({"op": f"euroc_scharr_l{level}(1x{h}x{w})", "kernel": "K1",
+                    "fn": lambda i=img: ops.scharr_gradients_batched(i),
+                    "plain": lambda i=img: ops.scharr_plain(i), **bound_scharr(img)})
+    shape = f"1x{EUROC_H}x{EUROC_W},n{N_PTS}"
+    return out + [
+        {"op": f"euroc_warp_texels_c3({shape})", "kernel": "K2",
+         "fn": lambda: ops.warp_and_sample(texels, pts.p3d, T, cam, texels=True),
+         "plain": lambda: ops.warp_and_sample_plain(texels, pts.p3d, T, cam, texels=True),
+         "note": "one pair, the --affine path's C = 3", **bound_sampler(ok2, 3, 12)},
+        {"op": f"euroc_sample_texels_c3({shape})", "kernel": "K3",
+         "fn": lambda: ops.cuda_bilinear_sample(texels, pts.uv, texels=True),
+         "plain": lambda: ops.bilinear_sample_texels_plain(texels, pts.uv),
+         "library": ("grid_sample", grid_sample_call(stacked, pts.uv)),
+         **bound_sampler(ok3, 3, 8)},
+        {"op": f"euroc_lm_evaluate(fc,{shape})", "kernel": "lm_evaluate",
+         "fn": lambda: evaluator(T),
+         "plain": lambda: ops.lm_evaluate_plain(texels, pts.p3d, T, *lm_args),
+         "note": "one FC LM evaluation of one pair on the target's texels",
+         **bound_lm_evaluate(pts.valid, ok, fc=True)},
+    ]
 
 
 def cases(dev, batch: int = B) -> list[dict]:
@@ -141,7 +249,6 @@ def cases(dev, batch: int = B) -> list[dict]:
     lm_args = (ref.intensity, ref.valid, sigma, cam, WeightKind.HUBER,
                ic_jacobian(pts0, ref.gx0, ref.gy0, cam))
     evaluator = ops.LMEvaluator(tgt, ref.p3d, *lm_args)
-    n_lm = int(valid.sum())
 
     ok3 = ops.cuda_bilinear_sample(stacked3, uv)[1]
     ok1 = ops.cuda_bilinear_sample(frames[:, None], uv)[1]
@@ -151,16 +258,16 @@ def cases(dev, batch: int = B) -> list[dict]:
          **bound(4 * (4 * levels + 1.25 * halved), K1_FLOPS * levels + 4 * halved)},
         {"op": f"scharr_l0(b{batch})", "kernel": "K1",
          "fn": lambda: ops.scharr_gradients_batched(frames),
-         "plain": lambda: ops.scharr_plain(frames), **bound(16 * pix, K1_FLOPS * pix)},
+         "plain": lambda: ops.scharr_plain(frames), **bound_scharr(frames)},
         {"op": f"sample_c3(b{batch},n2048)", "kernel": "K3",
          "fn": lambda: ops.cuda_bilinear_sample(stacked3, uv),
          "plain": lambda: ops.bilinear_sample_plain(stacked3, uv),
-         "library": ("grid_sample", grid_sample_call(stacked3, uv)), **sampler_bound(ok3, 3)},
+         "library": ("grid_sample", grid_sample_call(stacked3, uv)), **bound_sampler(ok3, 3, 8)},
         {"op": f"sample_c1(b{batch},n2048)", "kernel": "K3",
          "fn": lambda: ops.cuda_bilinear_sample(frames[:, None], uv),
          "plain": lambda: ops.bilinear_sample_plain(frames[:, None], uv),
          "library": ("grid_sample", grid_sample_call(frames[:, None], uv)),
-         **sampler_bound(ok1, 1)},
+         **bound_sampler(ok1, 1, 8)},
         {"op": f"normal_eq_6x6(b{batch},n2048)",
          "fn": lambda: (torch.einsum("bni,bnj->bij", J, J),
                         torch.einsum("bni,bn->bi", J, J[..., 0])),
@@ -181,7 +288,9 @@ def cases(dev, batch: int = B) -> list[dict]:
          "fn": lambda: evaluator(T_rel),
          "plain": lambda: ops.lm_evaluate_plain(tgt, ref.p3d, T_rel, *lm_args),
          "note": "one LM evaluation of the offline chunk's pairs (bench frames)",
-         **bound((batch - 1) * (N_PTS * 13 + 68 + 180) + n_lm * 44, n_lm * LM_FLOPS_IC)},
+         **bound_lm_evaluate(ref.valid, ok, fc=False)},
+        *k1_level_cases(frames),
+        *euroc_cases(dev),
     ]
 
 
@@ -206,7 +315,7 @@ def measure(case: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="MICRO_TORCH_r09.json")
+    ap.add_argument("--out", default="MICRO_TORCH_r10.json")
     ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (the default) times every op; cpu runs each once, untimed")
     ap.add_argument("--batch", type=int, default=B, help="frames per batch (default 96)")

@@ -18,6 +18,8 @@ library is loaded.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -126,16 +128,40 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+_RANGES = contextvars.ContextVar("uwslam_launch_ranges", default=False)
+
+
+@contextlib.contextmanager
+def launch_ranges():
+    """Within the block every launch runs inside a `torch.profiler`
+    `record_function` range named after its C entry point (`uws_...`). A
+    ctypes call is no operator: without the range the profiler links the
+    kernel to none, with it the kernel belongs to the range, which lies in
+    the wrapper's Python call (`attribute_trace` reads both). Off by default: a range
+    costs microseconds of host time per launch even with no profiler on,
+    and the profiler also records it on the device as an annotation that
+    spans the kernel, which a sum of all device events would count twice."""
+    token = _RANGES.set(True)
+    try:
+        yield
+    finally:
+        _RANGES.reset(token)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the C entry point `name` with `args` and, last, the current
     stream of `device`; raise if the launch was refused. The device guard is
-    entered only when `device` is not already the current one."""
+    entered only when `device` is not already the current one.
+
+    Inside `launch_ranges()` the call runs in a `record_function` range
+    named `name`."""
     fn = getattr(library(), name)
-    if torch.cuda.current_device() == device.index:
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    else:
-        with torch.cuda.device(device):
+    with torch.profiler.record_function(name) if _RANGES.get() else contextlib.nullcontext():
+        if torch.cuda.current_device() == device.index:
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = library().uws_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
