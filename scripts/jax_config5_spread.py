@@ -22,8 +22,8 @@ own choice); with `--port-threads` also the port's CLI (`uwslam_tpu_torch`,
 thread count. Every run is a process of its own, `--jobs` of them at a time,
 and the port's never imports JAX. For each run it prints one JSON line: the
 ATE (m, Sim(3)-aligned, unrounded), the keyframes, the loop edges accepted,
-the global BA's LM iterations and cost, and the seconds the run took; the
-last line holds every run.
+the global BA's LM iterations, cost, landmarks and observations, and the
+seconds the run took; the last line holds every run.
 """
 from __future__ import annotations
 
@@ -99,7 +99,9 @@ def child(argv: list[str], port_threads: int | None = None) -> None:
         "loop_edges": len(system._loops.loop_edges) if system._loops is not None else None,
         "global_ba_iterations": g.get("iterations"),
         "global_ba_cost": [g.get("initial_cost"), g.get("final_cost")],
-        "global_ba_landmarks": g.get("landmarks"), "seconds": round(time.perf_counter() - t0, 1),
+        "global_ba_landmarks": g.get("landmarks"),
+        "global_ba_observations": g.get("observations"),
+        "seconds": round(time.perf_counter() - t0, 1),
     }))
 
 

@@ -113,7 +113,7 @@ def test_hand_written_kernels_land_on_their_wrappers():
     _, frames = offline_budget.scene(bench.NUM_FRAMES, device=torch.device("cuda", 0))
     a = attribute_trace.attribute(frames, bench.CAM, chunks=1)
     assert a["unattributed_ms_per_chunk"] <= 0.02 * a["device_busy_ms_per_chunk"]
-    want = {("scharr_kernel", "ops/cuda_pyramid.py"): 5, ("warp_sample_kernel", "ops/cuda_track.py"): 5,
+    want = {("pyramid_kernel", "ops/cuda_pyramid.py"): 1, ("warp_sample_kernel", "ops/cuda_track.py"): 5,
             ("bilinear_sample_kernel", "ops/cuda_sample.py"): 3,
             ("lm_evaluate_kernel", "ops/cuda_track.py"): 32}
     for (kernel, wrapper), launches in want.items():

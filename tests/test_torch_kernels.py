@@ -5,9 +5,10 @@ version on the card, launch counts included.
 This file imports neither JAX nor the JAX package, so on a CUDA machine
 without JAX it runs alone:
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py`.
-K1, K2 and K3 and their plain versions evaluate the same f32 operations in
-the same order without FMA contraction, so the card's comparison is exact
-(atol 0), planar and texels alike. `lm_evaluate` sums in another order than
+The pyramid kernel (K1 redesigned: every level in one launch; K1 alone at
+one level), K2 and K3 and their plain versions evaluate the same f32
+operations in the same order without FMA contraction, so the card's
+comparison is exact (atol 0), planar and texels alike. `lm_evaluate` sums in another order than
 its plain version: valid counts equal, sums within 2e-5 of the pair's
 largest |H| entry (b: of sqrt(2 max|H| cost)), two launches bit-equal.
 The pipelined loop's CUDA graph replays the same launches on the same
@@ -196,6 +197,64 @@ def test_kernels_reject_bad_arguments_on_card(cuda_device):
         ops.scharr_gradients_batched(stack)                         # rank
 
 
+# The pyramid kernel: ragged tiles, the paths' shapes, K1 alone.
+PYRAMID_SHAPES = [
+    (2, 48, 80, 5),       # ragged tiles in both axes
+    (1, 464, 624, 5),     # the rectified ROI, ragged
+    (96, 480, 640, 5),    # the offline chunk (64 x 64 tiles)
+    (1, 480, 640, 3),     # the live frame
+    (1, 480, 736, 5),     # the rectified EUROC frame
+    (1, 480, 640, 5),     # track_sequence and entry()
+    (3, 37, 53, 1),       # one level of an odd frame
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,levels", PYRAMID_SHAPES)
+def test_pyramid_kernel_matches_plain_version_on_card(B, H, W, levels, cuda_device):
+    imgs = _images((B, H, W), H + W + levels).to(cuda_device)
+    before = ops.cuda_build_pyramid.launches
+    got = ops.cuda_build_pyramid(imgs, levels)
+    want = ops.pyramid_plain(imgs, levels)
+    torch.cuda.synchronize()
+    assert ops.cuda_build_pyramid.launches == before + 1
+    assert got[0][0] is imgs                        # level 0 is the input, not a copy
+    for field_got, field_want in zip(got, want):
+        assert len(field_got) == levels
+        for a, b in zip(field_got, field_want):
+            assert a.shape == b.shape and a.is_contiguous() and a.device == imgs.device
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_scharr_is_the_pyramid_kernel_at_one_level_on_card(cuda_device):
+    imgs = _images((3, 37, 53), 13).to(cuda_device)
+    before = (ops.scharr_gradients_batched.launches, ops.cuda_build_pyramid.launches)
+    got = ops.scharr_gradients_batched(imgs)
+    _, gx, gy, gm = ops.cuda_build_pyramid(imgs, 1)
+    torch.cuda.synchronize()
+    assert (ops.scharr_gradients_batched.launches, ops.cuda_build_pyramid.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b, c in zip(got, (gx[0], gy[0], gm[0]), ops.scharr_plain(imgs)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_pyramid_kernel_rejects_bad_inputs_on_card(cuda_device):
+    imgs = _images((2, 48, 80), 14).to(cuda_device)
+    before = ops.cuda_build_pyramid.launches
+    for bad, levels in ((imgs.transpose(1, 2), 1),          # not contiguous
+                        (imgs[:, :, ::2], 1),                # not contiguous
+                        (imgs.double(), 3),                  # not f32
+                        (imgs.half(), 1),                    # not f32
+                        (imgs[:, :40].contiguous(), 5),      # 40 rows: not divisible by 16
+                        (imgs, 6), (imgs, 0),                # levels out of range
+                        (imgs[0], 3)):                       # rank
+        with pytest.raises(ValueError):
+            ops.cuda_build_pyramid(bad, levels)
+    assert ops.cuda_build_pyramid.launches == before
+
+
 @pytest.mark.cuda
 def test_kernels_at_main_path_shapes_on_card(cuda_device):
     """K1 on a 96 x 480 x 640 batch; K2 and K3 with 95 pairs of 2048 points."""
@@ -294,13 +353,14 @@ def test_graph_replay_equals_the_eager_megastep_on_card(cuda_device):
         prev_pyr, prev_pts, _ = system._prev
         want = eager(f, prev_pyr, prev_pts, system._velocity, system._T_wc,
                      system.keyframes.latest.T_wc, system._eye)
-        before = ops.scharr_gradients_batched.launches
+        before = ops.cuda_build_pyramid.launches
         system.process_frame_async(f)
-        # A replay runs the captured launches (4 pyramid levels) and counts
-        # them; the first frame also ran the eager warm-up calls, while the
-        # capture itself, which runs nothing, counts nothing.
+        # A replay runs the captured launches (one pyramid launch builds all
+        # 4 levels) and counts them; the first frame also ran the eager
+        # warm-up calls, while the capture itself, which runs nothing,
+        # counts nothing.
         calls = 1 + (WARMUP_CALLS if i == 0 else 0)
-        assert ops.scharr_gradients_batched.launches - before == 4 * calls
+        assert ops.cuda_build_pyramid.launches - before == calls
         got = (*system._prev[:2], system._velocity, system._T_wc)
         for a, b in zip(tree_leaves(got), tree_leaves(want[:4])):
             assert torch.equal(a, b)

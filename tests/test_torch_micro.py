@@ -9,11 +9,11 @@ torch.set_num_threads(1)
 
 from uwslam_tpu_torch import micro  # noqa: E402
 
-OPS = ("pyramid5_k1", "scharr_l0", "sample_c3", "sample_c1", "normal_eq_6x6", "solve_6x6",
-       "topk_points", "se3_exp_compose_inv", "lm_evaluate",
+OPS = ("pyramid5_k1", "live_pyramid3", "roi_pyramid5", "scharr_l0", "sample_c3", "sample_c1",
+       "normal_eq_6x6", "solve_6x6", "topk_points", "se3_exp_compose_inv", "lm_evaluate",
        # K1 on the offline pyramid's levels 1-4, the kernels at the rectified EUROC shapes
        "scharr_l1", "scharr_l2", "scharr_l3", "scharr_l4",
-       "euroc_scharr_l0", "euroc_scharr_l1", "euroc_scharr_l2", "euroc_scharr_l3",
+       "euroc_pyramid5", "euroc_scharr_l0", "euroc_scharr_l1", "euroc_scharr_l2", "euroc_scharr_l3",
        "euroc_scharr_l4", "euroc_warp_texels_c3", "euroc_sample_texels_c3", "euroc_lm_evaluate")
 
 
@@ -22,6 +22,14 @@ def test_every_op_runs_once_on_the_cpu(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split('"')[3].split("(")[0] for ln in lines] == list(OPS)
     assert all('"ms": null' in ln for ln in lines)
+
+
+def test_the_pyramid_bound_counts_each_byte_once():
+    b = micro.bound_pyramid(torch.empty(96, 480, 640), 5)
+    assert b["bytes"] == 628_531_200 and b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(0.18762, rel=1e-4)
+    assert micro.bound_pyramid(torch.empty(1, 480, 640), 3)["bytes"] == 6_451_200
+    assert micro.bound_pyramid(torch.empty(1, 480, 736), 5)["bytes"] == 7_529_280
 
 
 def test_bounds_are_the_larger_of_bytes_and_operations():

@@ -7,7 +7,9 @@ HLO metadata to each device op). The port has no HLO: the bench chunk
 (`offline_budget.full_chunk` on the bench's 96 frames) runs under
 `torch.profiler` with Python stacks (`with_stack=True`), once per chunk for
 `CHUNKS` chunks on the frames + 0.1 i (built before any profile, after one
-warm-up chunk), and each profile's Chrome trace is read. Each kernel (memory
+warm-up chunk; on a card each profile opens on the same chunk once more,
+traced and dropped, `micro.warm_profile`), and each profile's Chrome trace
+is read. Each kernel (memory
 copies and sets included) is followed through its correlation id to the
 runtime call that launched it, and through that call's external id (or,
 for a call that carries none, its place in time on its thread) to the
@@ -52,6 +54,7 @@ import torch
 
 from . import bench
 from .offline_budget import Design, full_chunk, identity, scene
+from .micro import warm_profile
 from .ops._lib import launch_ranges
 
 CHUNKS = 3
@@ -60,6 +63,11 @@ MIN_ROW_MS = 0.05
 UNATTRIBUTED = "<unattributed>"
 LAUNCHER = "uwslam_tpu_torch/ops/_lib.py"
 RANGE_PREFIX = "uws_"        # `ops._lib.launch`'s ranges: the C entry points' names
+# The port's own kernels (`csrc/`) by the names the profiler gives them: the
+# pyramid kernel (all levels of a pyramid in one launch; K1 alone at one
+# level), K2 and K3, and the fused LM evaluation.
+HAND_WRITTEN = ("pyramid_kernel", "warp_sample_kernel", "bilinear_sample_kernel",
+                "lm_evaluate_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OP_CATS = ("cpu_op", "user_annotation")
 RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
@@ -182,10 +190,7 @@ def kernel_name(name: str) -> str:
 def attribute(frames, cam, design: Design = Design(), chunks: int = CHUNKS) -> dict:
     """Profile `chunks` chunks of `frames` (+ 0.1 i) and merge their rows,
     per chunk."""
-    from torch.profiler import ProfilerActivity, profile
-
     cuda = frames.device.type == "cuda"
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     inputs = [frames + INPUT_STEP * i for i in range(chunks)]
     full_chunk(frames, cam, design)                                # warm-up
     merged = defaultdict(lambda: [0.0, 0])
@@ -193,10 +198,14 @@ def attribute(frames, cam, design: Design = Design(), chunks: int = CHUNKS) -> d
     for x in inputs:
         if cuda:
             torch.cuda.synchronize()
-        with launch_ranges(), profile(activities=activities, with_stack=True) as prof:
+
+        def run(x=x):
             full_chunk(x, cam, design)
-            if cuda:
-                torch.cuda.synchronize()
+
+        # On a card a chunk in the warm-up step takes the records a profile
+        # loses at its start (`micro.warm_profile`).
+        with launch_ranges():
+            prof = warm_profile(run, run if cuda else lambda: None, cuda, with_stack=True)
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
@@ -225,7 +234,7 @@ def attribute(frames, cam, design: Design = Design(), chunks: int = CHUNKS) -> d
         "unattributed_ms_per_chunk": sum(r["ms_per_chunk"] for r in rows
                                          if r["source"] == UNATTRIBUTED),
         "hand_written": [r for r in attributed if r["source"].startswith(
-            "uwslam_tpu_torch/ops/cuda_") and not r["op"].startswith("aten::")],
+            "uwslam_tpu_torch/ops/cuda_") and any(k in r["op"] for k in HAND_WRITTEN)],
         "chunks": chunks,
     }
 

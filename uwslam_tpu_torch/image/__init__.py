@@ -3,6 +3,7 @@ from .pyramid import (
     PYRAMID_LEVELS,
     FramePyramid,
     bilinear_sample,
+    build_depth_pyramid,
     build_pyramid,
     build_pyramid_batched,
     downsample2x,
@@ -13,6 +14,7 @@ __all__ = [
     "PYRAMID_LEVELS",
     "FramePyramid",
     "bilinear_sample",
+    "build_depth_pyramid",
     "build_pyramid",
     "build_pyramid_batched",
     "downsample2x",

@@ -131,6 +131,11 @@ def umeyama_alignment(src: np.ndarray, dst: np.ndarray, with_scale: bool = True)
     return s, R, t
 
 
+# The count of non-finite pose pairs the last `ate_rmse` call dropped, and
+# of all its pairs: a machine-readable record beside the stderr warning.
+ate_last_dropped = {"dropped": 0, "total": 0}
+
+
 def ate_rmse(
     est_positions: np.ndarray,
     gt_positions: np.ndarray,
@@ -138,12 +143,15 @@ def ate_rmse(
     with_scale: bool = True,
 ) -> float:
     """Absolute trajectory error RMSE after (optional) Sim(3) alignment.
-    Non-finite positions are dropped with a warning on stderr."""
+    Non-finite positions are dropped with a warning on stderr, and counted in
+    `ate_last_dropped`."""
     est = np.asarray(est_positions, np.float64)
     gt = np.asarray(gt_positions, np.float64)
     if est.shape != gt.shape:
         raise ValueError(f"shape mismatch: {est.shape} vs {gt.shape}")
     finite = np.isfinite(est).all(axis=1) & np.isfinite(gt).all(axis=1)
+    ate_last_dropped["dropped"] = int((~finite).sum())
+    ate_last_dropped["total"] = int(len(est))
     if not finite.all():
         print(
             f"WARNING: ate_rmse dropping {int((~finite).sum())}/{len(est)} "

@@ -63,6 +63,22 @@ def apply(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return so3.apply(rotation(T), p) + translation(T)
 
 
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint (..., 6, 6) for the [v, w] twist ordering:
+    [[R, hat(t) R], [0, R]]."""
+    R = rotation(T)
+    top = torch.cat([R, torch.matmul(so3.hat(translation(T)), R)], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def interpolate(Ta: torch.Tensor, Tb: torch.Tensor, t) -> torch.Tensor:
+    """Geodesic interpolation Ta exp(t log(Ta^-1 Tb)); `t` a number or a
+    tensor of the batch shape."""
+    rel = log(compose(inverse(Ta), Tb))
+    return compose(Ta, exp(rel * torch.as_tensor(t, dtype=rel.dtype, device=rel.device)[..., None]))
+
+
 def normalize(T: torch.Tensor) -> torch.Tensor:
     """Re-orthonormalize the rotation block after compose chains."""
     return from_rotation_translation(

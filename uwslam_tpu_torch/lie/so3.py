@@ -131,6 +131,18 @@ def apply(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.matmul(R, p[..., None])[..., 0]
 
 
+def adjoint(R: torch.Tensor) -> torch.Tensor:
+    """The adjoint of SO(3) is the rotation matrix itself."""
+    return R
+
+
+def interpolate(Ra: torch.Tensor, Rb: torch.Tensor, t) -> torch.Tensor:
+    """Geodesic interpolation Ra exp(t log(Ra^-1 Rb)); `t` a number or a
+    tensor of the batch shape."""
+    rel = log(compose(inverse(Ra), Rb))
+    return compose(Ra, exp(rel * torch.as_tensor(t, dtype=rel.dtype, device=rel.device)[..., None]))
+
+
 def normalize(R: torch.Tensor) -> torch.Tensor:
     """Re-orthonormalize a drifting rotation: de-scale by the Frobenius
     estimate (the Newton step diverges for singular values > sqrt(3)), then

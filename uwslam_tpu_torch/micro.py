@@ -1,12 +1,15 @@
 """Per-operation micro benchmark of the port on one card: device time beside
 the card's bound.
 
-    python -m uwslam_tpu_torch.micro [--out MICRO_TORCH_r10.json] [--platform cuda|cpu]
+    python -m uwslam_tpu_torch.micro [--out MICRO_TORCH_r11.json] [--platform cuda|cpu]
 
 Counterpart of `benchmarks/micro.py` (the JAX package's, whose op list and
 shapes it keeps: a batch of 96 frames of 480 x 640, 2048 points per frame,
-65,536 twists), with K1 on the offline pyramid's coarser levels and the
-kernels at the rectified EUROC shapes (`k1_level_cases`, `euroc_cases`). Each op is timed by device time: one warm-up call, then
+65,536 twists), with the pyramid kernel at the offline, live, rectified-ROI
+and EUROC shapes beside `F.conv2d` of level 0's gradients, K1 alone on the
+offline pyramid's coarser levels and the kernels at the rectified EUROC
+shapes (`k1_level_cases`, `euroc_cases`). Each op is timed by device time:
+one warm-up call traced and dropped (`warm_profile`), then
 `REPS` calls under `torch.profiler`, the sum of the kernels' device time
 over them divided by `REPS` (CUDA events around back-to-back calls where a
 profile records no kernel, marked so). Its bound is the larger of the bytes
@@ -37,12 +40,14 @@ N_TWISTS = 65536
 EUROC_W, EUROC_H = 736, 480              # eval.py's EUROC calibration, rectified size
 EUROC_F = (458.654, 457.296)             # its pinhole focal lengths
 REPS = 20
+WARM_LAUNCHES = 1024     # small kernels traced and dropped before a profile's window
 # Operations per output element, counted from the kernels' sources: K1 per
 # pixel; K2, K3 per valid point (warp 18, projection 6, taps 10, blend 13 per
 # channel); lm_evaluate per valid point (K2's, the residual, weight and cost
 # 11, w J 6, 21 + 6 multiply-adds of the sums 54, 3 more sums; FC: the
 # Jacobian 40).
 K1_FLOPS = 25
+PYRAMID_MEAN_FLOPS = 4
 WARP_FLOPS, TAPS_FLOPS, BLEND_FLOPS = 24, 10, 13
 LM_FLOPS_IC = WARP_FLOPS + TAPS_FLOPS + BLEND_FLOPS + 11 + 6 + 54 + 3
 LM_FLOPS_FC = LM_FLOPS_IC + 2 * BLEND_FLOPS + 40
@@ -57,20 +62,52 @@ def bound(n_bytes: float, flops: float) -> dict:
             "bytes": n_bytes, "flops": flops}
 
 
-def kernel_profile(fn, reps: int = REPS, attempts: int = 3) -> tuple[float, float] | None:
-    """(device ms, kernel launches) per call of fn: the profiler's kernel time
-    and kernel count over `reps` calls after a warm-up call; None where no
-    one of `attempts` profiles records a kernel."""
-    from torch.autograd import DeviceType
+def warm_profile(run, warm, cuda: bool = True, with_stack: bool = False):
+    """A `torch.profiler.profile` that holds `run()` alone: the profiler
+    starts tracing before a warm-up step (on a card WARM_LAUNCHES one-element
+    adds, then `warm()`) and records from its end. On an H100 a profile whose
+    tracing starts on the work it is to record comes back short of its first
+    kernel records, more of them the more profiles the process has taken: an
+    offline chunk's 11,090 kernels lost 0, 1, 3 and 4 records in four
+    windows, and its first, the one pyramid launch, from the second window
+    on; with a chunk in the warm-up step four windows of four held all
+    11,090."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(attempts):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    prof = profile(activities=activities, with_stack=with_stack)
+    prof.prepare_trace()
+    try:
+        if cuda:
+            one = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+            for _ in range(WARM_LAUNCHES):
+                one.add_(1.0)
+        warm()
+        if cuda:
             torch.cuda.synchronize()
+    finally:
+        prof.start_trace()
+    try:
+        run()
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        prof.stop_trace()
+    return prof
+
+
+def kernel_profile(fn, reps: int = REPS, attempts: int = 3) -> tuple[float, float] | None:
+    """(device ms, kernel launches) per call of fn: the profiler's kernel time
+    and kernel count over `reps` calls after a warm-up call (`warm_profile`);
+    None where no one of `attempts` profiles records a kernel."""
+    from torch.autograd import DeviceType
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    for _ in range(attempts):
+        prof = warm_profile(run, fn)
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         us = sum(e.self_device_time_total for e in kernels)
         if us > 0:
@@ -133,6 +170,41 @@ def bound_scharr(images) -> dict:
     return bound(images.numel() * 4 * 4, images.numel() * K1_FLOPS)
 
 
+def bound_pyramid(images, levels: int) -> dict:
+    """The pyramid kernel on (B, H, W): level 0 read once; gx, gy, |g| of
+    every level and the images of levels 1 .. levels-1 written once; K1's
+    operations per pixel of every level and 4 (three adds, a multiply) per
+    pixel of a 2x2 mean."""
+    pix = [images.numel() >> (2 * level) for level in range(levels)]
+    return bound(4 * (pix[0] + 3 * sum(pix) + sum(pix[1:])),
+                 K1_FLOPS * sum(pix) + PYRAMID_MEAN_FLOPS * sum(pix[1:]))
+
+
+def scharr_conv_call(images):
+    """The nearest library yardstick of the pyramid kernel: `F.conv2d` of
+    level 0's Scharr gx and gy (one 2-channel 3x3 convolution, / 32) on
+    edge-replicated frames, cuDNN's TF32 off. It computes level 0's two
+    gradients only, not the means, |g| or the coarser levels; the padded
+    frames are made here, outside any timing."""
+    k = torch.tensor([[-3.0, 0.0, 3.0], [-10.0, 0.0, 10.0], [-3.0, 0.0, 3.0]],
+                     device=images.device) / 32.0
+    weight = torch.stack([k, k.t()])[:, None].contiguous()          # (2, 1, 3, 3)
+    padded = torch.nn.functional.pad(images[:, None], (1, 1, 1, 1), mode="replicate")
+    return lambda: torch.nn.functional.conv2d(padded, weight)
+
+
+def pyramid_case(op: str, images, levels: int) -> dict:
+    """The pyramid kernel on `images` at `levels` beside its plain version
+    and the convolution yardstick."""
+    from . import ops
+
+    return {"op": op, "kernel": "pyramid",
+            "fn": lambda: ops.cuda_build_pyramid(images, levels),
+            "plain": lambda: ops.pyramid_plain(images, levels),
+            "library": ("conv2d_scharr_level0", scharr_conv_call(images)),
+            "note": f"all {levels} levels in one launch", **bound_pyramid(images, levels)}
+
+
 def k1_level_cases(frames) -> list[dict]:
     """K1 on the offline pyramid's levels 1-4 (96 x 240 x 320 ... 96 x 30 x
     40 at the default batch), each level the 2 x 2 mean of the one above."""
@@ -180,7 +252,8 @@ def euroc_cases(dev) -> list[dict]:
     sigma = mad_sigma(torch.where(valid, vals[:, 0] - pts.intensity, 0.0), valid)
     lm_args = (pts.intensity, pts.valid, sigma, cam, WeightKind.HUBER)
     evaluator = ops.LMEvaluator(texels, pts.p3d, *lm_args)
-    out = []
+    out = [pyramid_case(f"euroc_pyramid5(1x{EUROC_H}x{EUROC_W})", frames[:1].contiguous(),
+                        bench.LEVELS)]
     for level, img in enumerate(ref.images):
         _, h, w = img.shape
         out.append({"op": f"euroc_scharr_l{level}(1x{h}x{w})", "kernel": "K1",
@@ -229,8 +302,6 @@ def cases(dev, batch: int = B) -> list[dict]:
     rhs = Hm[..., 0].contiguous()
     tw = torch.randn((N_TWISTS, 6), generator=g, device=dev) * 0.1
     pix = batch * H * W
-    levels = sum(pix >> (2 * level) for level in range(5))       # pixels over 5 levels
-    halved = sum(pix >> (2 * level) for level in range(4))       # levels that are halved
 
     # lm_evaluate at the offline shape: the bench's 96 frames, its points,
     # the relative poses its tracker finds (IC, Huber).
@@ -253,9 +324,9 @@ def cases(dev, batch: int = B) -> list[dict]:
     ok3 = ops.cuda_bilinear_sample(stacked3, uv)[1]
     ok1 = ops.cuda_bilinear_sample(frames[:, None], uv)[1]
     return [
-        {"op": f"pyramid5_k1(b{batch})", "fn": lambda: build_pyramid_batched(frames, levels=5),
-         "note": "5 levels of 2x2 means, K1 Scharr gx, gy, |g| on each",
-         **bound(4 * (4 * levels + 1.25 * halved), K1_FLOPS * levels + 4 * halved)},
+        pyramid_case(f"pyramid5_k1(b{batch})", frames, 5),
+        pyramid_case(f"live_pyramid3(1x{H}x{W})", frames[:1].contiguous(), 3),
+        pyramid_case("roi_pyramid5(1x464x624)", frames[:1, 8:472, 8:632].contiguous(), 5),
         {"op": f"scharr_l0(b{batch})", "kernel": "K1",
          "fn": lambda: ops.scharr_gradients_batched(frames),
          "plain": lambda: ops.scharr_plain(frames), **bound_scharr(frames)},
@@ -315,7 +386,7 @@ def measure(case: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="MICRO_TORCH_r10.json")
+    ap.add_argument("--out", default="MICRO_TORCH_r11.json")
     ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (the default) times every op; cpu runs each once, untimed")
     ap.add_argument("--batch", type=int, default=B, help="frames per batch (default 96)")

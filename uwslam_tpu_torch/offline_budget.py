@@ -1,7 +1,7 @@
 """The offline chunk's time by stage on one card: each stage of the bench
 chunk run alone at the full design point.
 
-    python -m uwslam_tpu_torch.offline_budget [--out BUDGET_TORCH_r10.json] [--platform cuda|cpu]
+    python -m uwslam_tpu_torch.offline_budget [--out BUDGET_TORCH_r11.json] [--platform cuda|cpu]
 
 Counterpart of `benchmarks/offline_budget.py` (the JAX package's), on the
 bench's scene (`bench.bench_poses`, `bench.bench_frames`: 96 frames of 480 x
@@ -23,7 +23,7 @@ Every row has `ms_per_chunk` (CUDA events around each of `STAGE_REPS` calls
 after a warm-up call, the median), `device_busy_ms` and `launches` (the
 profiler's kernel time and kernel count of one call), `idle_share` (1 -
 busy / ms: the share of the call with no kernel running) and the op of
-`MICRO_TORCH_r09.json` that covers the stage, where one does. The eager chunk
+`MICRO_TORCH_r11.json` that covers the stage, where one does. The eager chunk
 is host-bound, so wall time and device time part widely: `ms_per_chunk` is
 wall time on the device's clock, `device_busy_ms` is kernel time. Below the
 rows: `fps_serial` (95 pairs over the full chunk's median) and
@@ -57,7 +57,7 @@ from .tracking.sequence import track_sequence_batched
 STAGE_REPS = 10
 PIPELINED_CHUNKS = 6
 PIPELINE_STEP = 0.25         # gray levels added to the frames of each pipelined chunk
-MICRO_PATH = Path(__file__).resolve().parent.parent / "MICRO_TORCH_r09.json"   # cited rows
+MICRO_PATH = Path(__file__).resolve().parent.parent / "MICRO_TORCH_r11.json"   # cited rows
 MICRO_OPS = {"pyramid5_batched": "pyramid5_k1", "topk_select": "topk_points"}
 
 
@@ -223,7 +223,7 @@ def identity(cuda: bool) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="BUDGET_TORCH_r10.json")
+    ap.add_argument("--out", default="BUDGET_TORCH_r11.json")
     ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (the default) times on the card; cpu on the host's clock")
     ap.add_argument("--frames", type=int, default=bench.NUM_FRAMES)

@@ -1,11 +1,19 @@
 """Hand-written CUDA kernels of the tracking path, each beside its plain
-PyTorch version. K1 `scharr_gradients_batched`, K2 `warp_and_sample`, its
+PyTorch version. `cuda_build_pyramid` (K1 redesigned: every level of a frame
+batch's pyramid in one launch; `scharr_gradients_batched` is the same
+kernel at one level), K2 `warp_and_sample`, its
 fused redesign `lm_evaluate` (one launch per LM evaluation), K3
 `cuda_bilinear_sample`: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel (built from `csrc/` at first use). Each wrapper counts
 its kernel launches in its `launches` attribute. K2 and K3 take the three
 tracking channels as planes or as texels (`pack_texels`)."""
-from .cuda_pyramid import scharr_gradients_batched, scharr_plain
+from .cuda_pyramid import (
+    cuda_build_pyramid,
+    downsample2x,
+    pyramid_plain,
+    scharr_gradients_batched,
+    scharr_plain,
+)
 from .cuda_sample import (
     bilinear_sample_plain,
     bilinear_sample_texels_plain,
@@ -28,9 +36,12 @@ __all__ = [
     "bilinear_sample_plain",
     "bilinear_sample_texels_plain",
     "cuda_bilinear_sample",
+    "cuda_build_pyramid",
+    "downsample2x",
     "lm_evaluate",
     "lm_evaluate_plain",
     "pack_texels",
+    "pyramid_plain",
     "scharr_gradients_batched",
     "scharr_plain",
     "unpack_texels",

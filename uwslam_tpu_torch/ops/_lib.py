@@ -34,7 +34,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"          # the build directory of a writable install
-SOURCES = ("scharr.cu", "warp_sample.cu", "lm_evaluate.cu")
+SOURCES = ("pyramid.cu", "warp_sample.cu", "lm_evaluate.cu")
 HEADERS = ("sampling.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,8 +44,8 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # img, gx, gy, gm, B, H, W, stream
-    "uws_scharr": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # img, out_img, gx, gy, gm, B, H, W, levels, tile, stream
+    "uws_pyramid": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # img, p3d, T, out, valid, B, C, H, W, N, fx, fy, cx, cy, texels, stream
     "uws_warp_sample": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _F, _F, _F, _F, _I, _P),

@@ -20,11 +20,12 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_pyramid import scharr_gradients_batched
+from .cuda_pyramid import cuda_build_pyramid, scharr_gradients_batched
 from .cuda_sample import cuda_bilinear_sample
 from .cuda_track import lm_evaluate, warp_and_sample
 
-COUNTED = (scharr_gradients_batched, warp_and_sample, cuda_bilinear_sample, lm_evaluate)
+COUNTED = (cuda_build_pyramid, warp_and_sample, cuda_bilinear_sample, lm_evaluate,
+           scharr_gradients_batched)
 WARMUP_CALLS = 3
 
 
