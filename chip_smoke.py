@@ -17,9 +17,10 @@ fails. Phases, one line each:
    and on the exact right and bottom edges; K3 sample with 95 pairs, 3
    channels (planar and texels), 2048 points at levels 3, 2, 1, its interior
    also against `grid_sample`; the fused LM evaluation `lm_evaluate` (IC,
-   Huber and none) at every track level on the same points: valid counts
-   equal, every sum within LM_SUM_RTOL of the pair's scale, two launches
-   bit-equal. The pyramid kernel, K1, K2 and K3 must equal their plain
+   Huber and none, the pose alone and with an affine brightness (a, b) from
+   a seed) at every track level on the same points: valid counts
+   equal, every sum within LM_SUM_RTOL of the pair's scale, H symmetric,
+   the padding zero, two launches bit-equal. The pyramid kernel, K1, K2 and K3 must equal their plain
    versions bit for bit.
 4. The main path: the repo's bench.py sequence (96 frames of 640 x 480)
    rendered on the card and tracked by SequenceTracker in IC mode. Every
@@ -30,21 +31,27 @@ fails. Phases, one line each:
    events), the device's busy time and launches in one profiled chunk, and
    each kernel against its plain version, in device time (profiler; CUDA
    events where a profile, taken up to three times, records no kernel) and
-   in wall time per call (CUDA events).
+   in wall time per call (CUDA events); `lm_evaluate` also with affine
+   brightness.
 3b. The live path's kernel shapes at B = 1: the pyramid kernel on one
    frame at 3 levels (480 x 640, 240 x 320, 120 x 160) and K1 alone on each
    level, K2 with C = 1 and with C = 3 texels
-   (intensity and both gradients) and `lm_evaluate` (FC, on the texels) at
+   (intensity and both gradients) and `lm_evaluate` (FC, on the texels; the
+   pose alone and with affine brightness) at
    levels 1 and 0, and K3 with C = 1 at the descriptor shape (768 keypoints
    x 64 taps per level), each against its plain version as in phase 3.
-3c. The pyramid kernel at eval.py's rectified EUROC shape (1 x 480 x 736, 5
-   levels) against the plain pyramid, and timed beside its bound.
+3c. eval.py's rectified EUROC shape (1 x 480 x 736): the pyramid kernel at 5
+   levels against the plain pyramid, and `lm_evaluate` (FC, one pair, 2048
+   texels, the pose alone and with affine brightness: configs 2 and 3)
+   against its plain version as in phase 3; both timed beside their bounds.
 6. The live path (configuration 1): the same 96 frames through
    `SlamSystem.process_frame` (FC, 3 levels, track levels (1, 0), 10 LM
    iterations, 2048 points, keyframes, relocalization on). Every frame must
    be ok, ATE <= 2 mm, every kernel launched; the port's CPU run of the
    first 50 frames must give the same poses (1e-3 on se3.log) and the same
-   keyframes.
+   keyframes. From here to phase 19 the CPU comparison runs (phases 6-7,
+   10, 11b, 11c, 15, 17, 19) go on in a process of their own beside the
+   card's work (`ProcessRuns`).
 7. Relocalization: the same run with frame 50 replaced by uniform noise
    (numpy seed 0): frame 50 lost, frame 51 relocalized, ATE <= 4 mm over
    the other 95 frames. The port's CPU run of these 96 frames (whose first
@@ -71,7 +78,8 @@ fails. Phases, one line each:
    one pair at every track level), as in phase 3b; the offline IC chunk and `track_sequence` (FC, sequential, 96 frames) with the
    plane's depth frames (ATE <= 1 mm; the CPU's run of the first frames
    within 1e-3 on se3.log); the live path with depth images
-   (`process_frame(depth=)`, all ok, ATE <= 2 mm). The monocular depth is
+   (`process_frame(depth=)`, all ok, ATE <= 2 mm; in a process of its own
+   beside the offline runs). The monocular depth is
    set wrong (1 where the plane is at 2), so only the depth images can give
    these trajectories.
 11. The pipelined live loop: (a) the CUDA graph's replay against the eager
@@ -113,18 +121,19 @@ fails. Phases, one line each:
 15. Config 2, synchronous: 48 frames of the multi-plane scene with
    `use_features` and `depth_bootstrap`, and with the bootstrap off: every
    frame ok, the prior installed within the first frames, bootstrap ATE
-   below the constant-depth ATE, two card runs bit-equal. Against the
-   port's CPU run of the first 24 frames, which takes the same forms of
+   below the constant-depth ATE, two card runs bit-equal over the first 24
+   frames. Against the
+   port's CPU run of those 24 frames, which takes the same forms of
    every operation: equal statuses, both ATEs under the bar and close,
    poses within
    CONFIG2_POSE_ATOL (this path amplifies last-bit differences, which a
-   third card run on the frames plus 1e-4 gray levels of noise measures:
+   card run on those frames plus 1e-4 gray levels of noise measures:
    the 1e-3 of the other paths does not hold here, see the constant).
    Also uw-slam's active pipeline
    (`--reference-mode`: patch points, level 0, identity weights) on 48 plane
    frames under a bar from the JAX package's CPU run of the same frames.
 16. Config 2, pipelined: the bootstrap megastep's replay against its eager
-   call, bit for bit; the pipelined trajectory against the synchronous one
+   call, bit for bit (in a process of its own beside phase 15); the pipelined trajectory against the synchronous one
    (PIPE_VS_SYNC_ATE); frames through the graph, launches per replay, ms per
    frame, and device ms and kernels per frame from a profiled window.
 17. Config 4: the 96 plane frames with `use_features` and `use_ba`
@@ -140,7 +149,8 @@ fails. Phases, one line each:
    keyframes.
 18. The CLI with `--features --depth-bootstrap`, with `--features --ba` and
    with `--photo-ba` on the 8-bit dataset of phase 8: exit 0, ATE within
-   CLI_ATE_MAX.
+   CLI_ATE_MAX (in a process of its own beside phases 15-16a; its line
+   follows 16a's).
 19. Photometric window BA: K3 at the solve's shape (10 observers' texels at
    level 1, 240 x 320, each sampled at the 10 x 2048 projections of a
    10-keyframe two-plane window; and C = 1 for the reference intensity)
@@ -167,10 +177,12 @@ fails. Phases, one line each:
    flags and health checks: (a) config 5 at eval.py's quick size (80
    frames, period 56) twice on the card with the window solves retired at
    once, bit-equal, and once on the CPU (all 80 frames) in a process of its
-   own while the card runs; each under eval.py's health checks and the ATE
+   own while the card runs phases 20-23 (its line follows phase 23's); each
+   under eval.py's health checks and the ATE
    bar (1.25x the largest JAX CLI run of the same frames), card against CPU
    reported over the CPU's frames (CPU_RUN_THREADS's note says why it is
-   not held); (b) configs 6 and 7 the same way, under their health checks,
+   not held); (b) configs 6 and 7 the same way (in a process of their own
+   while this one runs (a)'s two), under their health checks,
    and config 5's ATE against config 6's (eval.py's check that the global
    BA earns its place): asserted when every JAX CLI run of the same frames
    passes it, printed beside their figures when one fails it too;
@@ -188,7 +200,8 @@ fails. Phases, one line each:
    levels 3-0, max_iters 10) over 8 sequence shards in one process; batched
    IC against the unsharded `track_sequence_batched` (1e-6 on se3.log,
    inliers equal, ATE within 1 mm), the sequential chunks in FC within
-   1.25x the JAX package's CPU run of the same call; launches, ms, frames/s.
+   1.25x the JAX package's CPU run of the same call (in a process of their
+   own beside phase 24, their line after 24's); launches, ms, frames/s.
 22. Observer-sharded photometric BA: phase 19's window over 1, 2 and 5
    shards, each within tests/test_photometric_ba.py's bar of one shard's
    solve, cost below 0.2 of the initial one, two 5-shard solves bit-equal,
@@ -204,19 +217,23 @@ fails. Phases, one line each:
    counts), `--viz-port 0` and a `VizServer` answering on port 0; then
    `uwslam_tpu_torch.entry.entry()` on the card against the CPU (1e-4 on
    se3.log), each kernel against its plain version and timed at its shapes
-   (B = 1, 5 levels, IC), and `dryrun_multichip(8)`.
+   (B = 1, 5 levels, IC), and `dryrun_multichip(8)`. The CPU's `--map-out`
+   run and `entry()` go on in a process of their own.
 24. eval.py's configs 0-4 and 8-10 at full size (`uwslam_tpu_torch.eval`):
    150 TUM frames of 640 x 480 and 120 frames of each EUROC scene at 752 x
    480 with the real radtan coefficients (rectified to 736 x 480), rendered
-   on the card, each config through the port's CLI in this process with
-   eval.py's flags: the render the JAX figures were measured on
+   on the card, each config through the port's CLI with eval.py's flags
+   (the reference-mode configs 0, 8 and 9 each in a process of its own
+   beside 1, 2, 3 and 10 in this one, then config 4 alone:
+   SIDE_EVAL_CONFIGS): the render the JAX figures were measured on
    (EVAL_FRAMES_DIGEST), every frame tracked, ATE within its bar
    (EVAL_ATE_MAX: 1.25 x the largest of the JAX CLI's CPU runs of the same
    frames, printed beside it), fps, warm fps, window-BA iterations/s and
    each kernel's launches per config; eval.py's health checks that every
    JAX CLI run of those frames passes are asserted, those one fails too
    printed beside their figures; the pyramid kernel, `lm_evaluate` and K3
-   launched.
+   launched, and `lm_evaluate` in each of the affine configs 2 and 3 (their
+   K2 and `lm_evaluate` launches printed).
 25. The measuring tools at their full design points, in a process of
    their own (see `phase_tools_fresh`), with reduced repetitions (1 timed
    call per budget stage, 1 profiled attribution chunk, 1 solve per shard
@@ -236,7 +253,8 @@ fails. Phases, one line each:
    `ops._lib.launch_ranges()` (the profiler ranges the attribution opens
    around the hand-written kernels' launches), in turns.
 
-Every phase line ends in its seconds and the script's running total.
+Every phase line ends in its seconds, split into the card's work and the
+CPU comparison runs it waited for, and the script's running total.
 
 Then a JSON line of per-kernel results, K1 alone among them (`on_path`
 false: no path launches it, each builds its pyramid in one launch):
@@ -246,8 +264,10 @@ photometric BA, the long config-5, the sequence-sharded, the entry's
 and each phase-24 config's path, and K3's per photometric shard count;
 time, plain version's
 time, the card's bound for the same bytes and operations, and a library
-call's time where one computes the same function), the card's name and
-power limit, and, last, `{"ok": true, "device": {...}}`.
+call's time where one computes the same function; `lm_evaluate`'s also
+with affine brightness at the offline, live and EUROC shapes, `_affine`
+keys), the card's name and power limit, and, last,
+`{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -256,6 +276,8 @@ import hashlib
 import io
 import json
 import math
+import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -275,6 +297,7 @@ from uwslam_tpu_torch.micro import (  # the card's bound and the kernels' operat
     bound_sampler,
     bound_pyramid,
     bound_scharr,
+    brightness,
     grid_sample_call,
     scharr_conv_call,
     warm_profile,
@@ -310,7 +333,7 @@ LIVE_ATE_MAX = 2e-3      # m; the JAX package's CPU run of the live path: 0.0008
 RELOC_ATE_MAX = 4e-3
 LIVE_T_ATOL = 1e-3       # se3.log of the card's vs the CPU's per-frame T_wc
 LIVE_WARMUP = 15         # the JAX CLI's own warm-up count
-LIVE_PROFILED_FRAMES = 5  # op-level tracing adds seconds to each profiled frame
+LIVE_PROFILED_FRAMES = 3  # op-level tracing adds seconds to each profiled frame
 NOISE_FRAME = 50         # frames before it are the same in phases 6 and 7
 CLI_FRAMES = 32
 CLI_ATE_MAX = 2e-2       # m; JAX CPU on the same 32 8-bit frames: 0.011238 m
@@ -362,11 +385,14 @@ CONFIG2_ATE_MAX = 3e-2   # m; the port's CPU run 0.0148 m, constant depth 0.0453
 # card is 0.0120 from the CPU (H100 80GB HBM3, 700 W, and its host). So the
 # bound is 2.5 times that gap, not the 1e-3 of the other paths; the ATEs must
 # agree to 15%, the statuses must be equal, and the keyframes are printed.
-# What holds the card's path to the bit is its own second run and phase 16.
+# The card is held to the CPU over the first CONFIG2_CPU_FRAMES frames, and
+# the noise run that measures the amplification is taken over those frames.
+# What holds the card's path to the bit is its own second run (over those
+# frames too) and phase 16.
 CONFIG2_POSE_ATOL = 3e-2
 CONFIG2_NOISE = 1e-4      # gray levels; the run that measures the amplification
 REFERENCE_ATE_MAX = 5e-3  # m; the JAX package's CPU run of these 48 frames: 0.001757 m
-BOOT_PROFILED_FRAMES = 4
+BOOT_PROFILED_FRAMES = 2
 # m; the JAX package's CPU runs of the 96 frames: pipelined with `use_ba`
 # 0.002693 m (0.000853 m without: its window BA costs accuracy on this
 # fronto-parallel plane), `use_features` + `use_ba` 0.003712 m (0.003671 m).
@@ -407,17 +433,241 @@ PHOTO_COST_RTOL = 1e-2
 PHOTO_SOLVE_COST_RTOL = 3e-2
 
 
-_CLOCK = {"start": time.perf_counter()}   # the script's start, then each line's time
+# The script's start, then each line's time; the seconds of CPU comparison
+# runs since the last line.
+_CLOCK = {"start": time.perf_counter(), "cpu": 0.0, "timing": 0.0}
 
 
 def say(phase: str, msg: str) -> None:
     """A phase's line, ending in the seconds since the previous line (the
-    phase's time) and since the script started."""
+    phase's time), split into the card's work (everything but the CPU runs:
+    renders, the host's driving of the card, checks) and the CPU comparison
+    runs (`cpu_run`), and the seconds since the script started."""
     now = time.perf_counter()
     last = _CLOCK.get("last", _CLOCK["start"])
-    _CLOCK["last"] = now
-    print(f"[{phase}] {msg} [{now - last:.1f} s; {now - _CLOCK['start']:.1f} s in all]",
-          flush=True)
+    cpu, _CLOCK["cpu"], _CLOCK["last"] = _CLOCK["cpu"], 0.0, now
+    timing, _CLOCK["timing"] = _CLOCK["timing"], 0.0
+    print(f"[{phase}] {msg} [{now - last:.1f} s: card work {now - last - cpu:.1f} s (of which "
+          f"kernel timing {timing:.1f} s), CPU runs {cpu:.1f} s; "
+          f"{now - _CLOCK['start']:.1f} s in all]", flush=True)
+
+
+@contextlib.contextmanager
+def cpu_run():
+    """Counts the block's seconds as a CPU comparison run on the next phase
+    line. The CPU runs follow the host's load; the card's work does not."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _CLOCK["cpu"] += time.perf_counter() - t0
+
+
+class RunRecord:
+    """What the phases read of a SlamSystem's run in another process
+    (`record`, a dict of the port's own types, made there): its frame
+    states, exported trajectory, window solves, region of interest and
+    camera (`states_vs_cpu`, `card_vs_cpu`, `live_ate`, `pose_gap` and
+    `all_ok` take it as they take the system)."""
+
+    def __init__(self, record: dict):
+        self.trajectory, self._exported = record["trajectory"], record["exported"]
+        self.ba_stats, self._roi, self.cam = record["ba_stats"], record["roi"], record["cam"]
+
+    @staticmethod
+    def record(system) -> dict:
+        return {"trajectory": list(system.trajectory), "exported": system.export_trajectory(),
+                "ba_stats": dict(system.ba_stats), "roi": system._roi, "cam": system.cam}
+
+    def export_trajectory(self):
+        return self._exported
+
+
+def _job_live_noisy(inp):
+    return run_live(inp["noisy"], "cpu")[1]
+
+
+def _depth_trackers():
+    """Phase 10's offline trackers: {name: (tracker, sequential)}."""
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.tracking.sequence import SequenceTracker
+
+    return {
+        "chunk_ic": (bench.make_tracker(bench.CAM), False),
+        "track_sequence_fc": (SequenceTracker(
+            bench.CAM, levels=bench.LEVELS, track_levels=bench.TRACK_LEVELS,
+            num_points=bench.NUM_POINTS, max_iters=bench.ITERS, mode="fc"), True),
+    }
+
+
+def _job_depth(name):
+    def job(inp):
+        tracker, sequential = _depth_trackers()[name]
+        n = DEPTH_CPU_FRAMES
+        return tracker(inp["frames"][:n], mono_z=1.0, depth_frames=inp["depths"][:n],
+                       sequential=sequential)[0]
+    return job
+
+
+def _job_pipelined(inp):
+    return RunRecord.record(run_pipelined(inp["frames"], "cpu")[0])
+
+
+def _job_pipelined_reloc(inp):
+    return RunRecord.record(run_pipelined(inp["noisy"], "cpu")[0])
+
+
+def _job_config2(inp):
+    system = front_end_system("cpu", bootstrap=True)
+    drive(system, inp["scene"][:CONFIG2_CPU_FRAMES])
+    return RunRecord.record(system)
+
+
+def _job_config4(inp):
+    system = ba_system("cpu", features=True)
+    drive(system, inp["frames"][:CONFIG4_CPU_FRAMES])
+    return RunRecord.record(system)
+
+
+def photo_solve(cam):
+    """Phase 19's window solve at `cam`: the fields of a PhotoBAProblem ->
+    the solver's outputs."""
+    from uwslam_tpu_torch.ba import photometric as pba
+
+    def solve(*fields):
+        return tuple(pba.photometric_bundle_adjust(pba.PhotoBAProblem(*fields), cam,
+                                                   max_iters=PHOTO_MAX_ITERS))
+    return solve
+
+
+def _job_photo_solve(inp):
+    """Phase 19's window solved on the CPU -> (its outputs, seconds, its
+    final cost at 1, 2 and 4 threads)."""
+    prob, cam = inp["photo_window"]
+    solve = photo_solve(cam)
+    t0 = time.perf_counter()
+    cpu = solve(*prob)
+    cpu_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    by_threads = {}
+    for n in (1, 2, 4):
+        torch.set_num_threads(n)
+        by_threads[n] = float(solve(*prob)[2])
+    torch.set_num_threads(threads)
+    return cpu, cpu_s, by_threads
+
+
+def _job_photo_ba(inp):
+    system = photo_system("cpu")
+    drive(system, inp["frames"])
+    return RunRecord.record(system)
+
+
+def _job_map_out(inp):
+    """Phase 23's `--map-out` run of the CLI on the CPU -> its stderr."""
+    return cli_text(inp["map_out"], "--map-out on cpu")[2]
+
+
+def _job_entry(inp):
+    """`entry()` on the CPU -> its pose."""
+    from uwslam_tpu_torch.entry import entry
+
+    fn, args = entry(device="cpu")
+    return fn(*args)
+
+
+def _job_config5_quick(inp):
+    """Config 5 on the CPU over the first QUICK_CPU_FRAMES frames, window
+    solves retired at once as in phase 20(a)'s card runs."""
+    return run_loop_config(inp["quick"], 5, "cpu", retire_at_once=True,
+                           max_frames=QUICK_CPU_FRAMES)
+
+
+# The CPU comparison runs: each the port's CPU run of what the card ran.
+CPU_JOBS = {"live_noisy": _job_live_noisy, "depth_chunk_ic": _job_depth("chunk_ic"),
+            "depth_track_sequence_fc": _job_depth("track_sequence_fc"),
+            "pipelined": _job_pipelined,
+            "pipelined_reloc": _job_pipelined_reloc, "config2": _job_config2,
+            "config4": _job_config4, "photo_solve": _job_photo_solve,
+            "photo_ba": _job_photo_ba, "config5_quick": _job_config5_quick,
+            "map_out": _job_map_out, "entry": _job_entry}
+# Those of phases 6-7, 10, 11b, 11c, 15, 17 and 19, in the order the phases
+# read them: one process runs them from phase 6 on (phase 20's and 23's run
+# in processes of their own).
+WORKER_JOBS = ("live_noisy", "depth_chunk_ic", "depth_track_sequence_fc", "pipelined",
+               "pipelined_reloc", "config2", "config4", "photo_solve", "photo_ba")
+
+
+class ProcessRuns:
+    """Runs in a process of their own (`--runs`), one after another, while
+    this process goes on; each result lands in a file under `root` (a
+    directory of its own) as soon as it is done. `runs` maps each run's key
+    to its argument, and `kind` says what a run is:
+      "cpu"     a CPU_JOBS entry on `inputs` (the CPU comparison runs);
+      "system"  a SIDE_SYSTEMS entry on `inputs`, on the card;
+      "eval"    phase 24's CLI arguments (`run_cli_in_process`);
+      "loop"    phase 20's data arguments on the card (`run_loop_config`,
+                window solves retired at once, the poses left out).
+    The process takes this one's number of CPU threads unless `threads`
+    says otherwise, so a CPU run is the one this process would make.
+    `result(key)` waits for one run -> (its result, its seconds there);
+    waiting on a "cpu" run counts as a CPU run on the phase line."""
+
+    def __init__(self, root: Path, kind: str, runs: dict, inputs=None,
+                 threads: int | None = None):
+        root.mkdir(parents=True)
+        self.root, self.kind = root, kind
+        spec = root / "spec.pkl"
+        spec.write_bytes(pickle.dumps({
+            "kind": kind, "runs": runs, "inputs": inputs,
+            "threads": threads or torch.get_num_threads()}))
+        self.proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--runs",
+                                      str(spec)])
+
+    def result(self, key):
+        out = self.root / f"{key}.pkl"
+        with cpu_run() if self.kind == "cpu" else contextlib.nullcontext():
+            deadline = time.perf_counter() + RUN_TIMEOUT_S
+            while not out.exists():
+                if self.proc.poll() is not None and not out.exists():
+                    raise AssertionError(f"the {self.kind} runs' process exited "
+                                         f"{self.proc.returncode} before its {key} run")
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"the {self.kind} run {key} took over "
+                                         f"{RUN_TIMEOUT_S} s")
+                time.sleep(0.05)
+        done = pickle.loads(out.read_bytes())
+        return done["result"], done["s"]
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def runs_process(spec_path: str) -> None:
+    """Body of the `--runs` process (`ProcessRuns`): every run of the spec
+    in order, each result written to `<key>.pkl` beside the spec as soon as
+    it is done."""
+    spec = pickle.loads(Path(spec_path).read_bytes())
+    torch.set_num_threads(spec["threads"])
+    kind, inputs, root = spec["kind"], spec["inputs"], Path(spec_path).parent
+    if kind == "cpu":
+        os.nice(10)   # the CPU comparison runs yield the host to the card's processes
+    table = kernels_table() if kind == "eval" else None
+    for key, arg in spec["runs"].items():
+        t0 = time.perf_counter()
+        if kind == "cpu":
+            result = CPU_JOBS[key](inputs)
+        elif kind == "system":
+            result = SIDE_SYSTEMS[key](inputs)
+        elif kind == "eval":
+            result = run_cli_in_process(arg, table, f"config {key}")
+        else:
+            result = strip_poses(run_loop_config(arg, key, "cuda", retire_at_once=True))
+        tmp = root / f"{key}.pkl.tmp"
+        tmp.write_bytes(pickle.dumps({"result": result, "s": time.perf_counter() - t0}))
+        os.replace(tmp, root / f"{key}.pkl")
 
 
 def kernels_table():
@@ -534,54 +784,72 @@ def compare(kernel_out, plain_out, atol: float, what: str) -> float:
 
 
 def lm_sums_error(got, want) -> float:
-    """Largest error of a kernel's (B, 48) sums against the plain version's,
-    as a fraction of each pair's scale for that sum (see LM_SUM_RTOL). Valid
-    counts must be equal, the kernel's H symmetric and its padding zero."""
-    from uwslam_tpu_torch.ops.cuda_track import LM_B, LM_COST, LM_COUNT, LM_H
+    """Largest error of a kernel's (B, 48) or, with affine brightness,
+    (B, 80) sums against the plain version's, as a fraction of each pair's
+    scale for that sum (see LM_SUM_RTOL). Valid counts must be equal, the
+    kernel's H symmetric and its padding zero."""
+    from uwslam_tpu_torch.ops.cuda_track import LM_AFFINE, LM_POSE
 
-    if not torch.equal(got[:, LM_COUNT], want[:, LM_COUNT]):
+    lay = LM_AFFINE if got.shape[1] == LM_AFFINE.width else LM_POSE
+    if not torch.equal(got[:, lay.count], want[:, lay.count]):
         raise AssertionError("lm_evaluate: valid counts differ")
-    H = got[:, LM_H].view(-1, 6, 6)
-    if not torch.equal(H, H.transpose(1, 2)) or bool(got[:, 45:].any()):
+    H = got[:, lay.H].view(-1, lay.n, lay.n)
+    if not torch.equal(H, H.transpose(1, 2)) or bool(got[:, lay.count + 1:].any()):
         raise AssertionError("lm_evaluate: H is not symmetric or the padding not zero")
     got, want = got.double(), want.double()
-    h_scale = want[:, LM_H].abs().amax(-1, keepdim=True)
-    b_scale = torch.sqrt(2.0 * h_scale * want[:, LM_COST, None])
+    h_scale = want[:, lay.H].abs().amax(-1, keepdim=True)
+    b_scale = torch.sqrt(2.0 * h_scale * want[:, lay.cost, None])
+    tail = slice(lay.cost, lay.abs_r + 1)
     worst = 0.0
-    for sl, scale in ((LM_H, h_scale), (LM_B, b_scale), (slice(42, 44), want[:, 42:44].abs())):
+    for sl, scale in ((lay.H, h_scale), (lay.b, b_scale), (tail, want[:, tail].abs())):
         rel = (got[:, sl] - want[:, sl]).abs() / scale.clamp(min=1e-30)
         worst = max(worst, float(rel.max()))
     return worst
 
 
-def check_lm_evaluate(target, pts_l, T, cam_l, what: str, J_ref=None) -> float:
-    """`lm_evaluate` (Huber and none) against its plain version at poses T:
-    counts equal, sums within LM_SUM_RTOL, a second launch bit-equal. The
-    scale is the MAD of the residuals at T, as on the main path."""
+def lm_scale(target, pts_l, T, cam_l, fc: bool, ab=None):
+    """The level's scale as the main path takes it: the MAD of the residuals
+    at T (the affine residuals at (T, ab) where ab is given)."""
     from uwslam_tpu_torch import ops
-    from uwslam_tpu_torch.ops.cuda_track import LM_COUNT
-    from uwslam_tpu_torch.tracking.robust import WeightKind, mad_sigma
+    from uwslam_tpu_torch.tracking.photometric import _affine_residual
+    from uwslam_tpu_torch.tracking.robust import mad_sigma
 
-    fc = J_ref is None
     vals, ok = ops.warp_and_sample_plain(target if fc else target[:, None], pts_l.p3d, T,
                                          cam_l, texels=fc)
     valid = pts_l.valid & ok
-    sigma = mad_sigma(torch.where(valid, vals[:, 0] - pts_l.intensity, 0.0), valid)
+    r = torch.where(valid, vals[:, 0] - pts_l.intensity, 0.0)
+    if ab is not None:
+        r = _affine_residual(r, pts_l.intensity, ab, valid)
+    return mad_sigma(r, valid), ok
+
+
+def check_lm_evaluate(target, pts_l, T, cam_l, what: str, J_ref=None) -> float:
+    """`lm_evaluate` (Huber and none; the pose alone and with an affine
+    brightness (a, b) from `brightness`) against its plain version at poses
+    T: counts equal, sums within LM_SUM_RTOL, a second launch bit-equal. The
+    scale is the MAD of the residuals at T, as on the main path."""
+    from uwslam_tpu_torch import ops
+    from uwslam_tpu_torch.tracking.robust import WeightKind
+
+    fc = J_ref is None
     worst = 0.0
-    for kind in (WeightKind.HUBER, WeightKind.NONE):
-        args = (pts_l.intensity, pts_l.valid, sigma, cam_l, kind, J_ref)
-        evaluator = ops.LMEvaluator(target, pts_l.p3d, *args)
-        first = evaluator(T).clone()
-        if not torch.equal(first, evaluator(T)):
-            raise AssertionError(f"{what} {kind.value}: two launches differ")
-        plain = ops.lm_evaluate_plain(target, pts_l.p3d, T, *args)
-        if not int(plain[:, LM_COUNT].max()) > 0:
-            raise AssertionError(f"{what}: no valid point")
-        err = lm_sums_error(first, plain)
-        if not err <= LM_SUM_RTOL:
-            raise AssertionError(f"{what} {kind.value}: sums differ by {err} of their "
-                                 f"scale > {LM_SUM_RTOL}")
-        worst = max(worst, err)
+    for ab in (None, brightness(T.shape[0], T.device)):
+        sigma, _ = lm_scale(target, pts_l, T, cam_l, fc, ab)
+        form = "affine" if ab is not None else "pose"
+        for kind in (WeightKind.HUBER, WeightKind.NONE):
+            args = (pts_l.intensity, pts_l.valid, sigma, cam_l, kind, J_ref)
+            evaluator = ops.LMEvaluator(target, pts_l.p3d, *args, affine=ab is not None)
+            first = evaluator(T, ab).clone()
+            if not torch.equal(first, evaluator(T, ab)):
+                raise AssertionError(f"{what} {form} {kind.value}: two launches differ")
+            plain = ops.lm_evaluate_plain(target, pts_l.p3d, T, *args, ab=ab)
+            if not int(plain[:, evaluator.layout.count].max()) > 0:
+                raise AssertionError(f"{what}: no valid point")
+            err = lm_sums_error(first, plain)
+            if not err <= LM_SUM_RTOL:
+                raise AssertionError(f"{what} {form} {kind.value}: sums differ by {err} of "
+                                     f"their scale > {LM_SUM_RTOL}")
+            worst = max(worst, err)
     return worst
 
 
@@ -671,20 +939,42 @@ def phase_parity(pyr, pts, cam, track_levels, seed: int = 0):
 
 
 def phase_euroc_pyramid(dev) -> tuple[dict, dict]:
-    """The pyramid kernel at the shape of eval.py's rectified EUROC frames
-    (one 480 x 736 frame, 5 levels: configs 3, 4 and 8-10), on a view of the
-    bench's plane, against the plain pyramid; its time beside its bound."""
-    from uwslam_tpu_torch import bench
+    """The kernels at the shape of eval.py's rectified EUROC frames (480 x
+    736: configs 3, 4 and 8-10) on two views of the bench's plane: the
+    pyramid kernel (one frame, 5 levels) against the plain pyramid, and
+    `lm_evaluate` (FC, one pair, 2048 texels; the pose alone and with affine
+    brightness, as configs 2 and 3 run it) against its plain version; their
+    times beside their bounds."""
+    from uwslam_tpu_torch import bench, ops
     from uwslam_tpu_torch.camera.model import PinholeCamera
     from uwslam_tpu_torch.image.pyramid import build_pyramid
-    from uwslam_tpu_torch.micro import EUROC_F, EUROC_H, EUROC_W
+    from uwslam_tpu_torch.lie import se3
+    from uwslam_tpu_torch.micro import EUROC_F, EUROC_H, EUROC_W, N_PTS
+    from uwslam_tpu_torch.tracking.points import topk_gradient_points
+    from uwslam_tpu_torch.tracking.robust import WeightKind
 
     cam = PinholeCamera(fx=EUROC_F[0], fy=EUROC_F[1], cx=(EUROC_W - 1) / 2.0,
                         cy=(EUROC_H - 1) / 2.0, width=EUROC_W, height=EUROC_H)
-    frame = bench.bench_frames(bench.bench_poses(1, device=dev), cam)
-    err = check_pyramid(build_pyramid(frame[0], levels=bench.LEVELS), "EUROC 480x736")
-    times = time_pairs(*pyramid_calls(frame, bench.LEVELS))
-    return err, times
+    poses = bench.bench_poses(2, device=dev)
+    frames = bench.bench_frames(poses, cam)
+    ref, tgt = (build_pyramid(frames[i], levels=bench.LEVELS) for i in (0, 1))
+    err = check_pyramid(ref, "EUROC 480x736")
+    pts = topk_gradient_points(ref.images[0], ref.grad_mag[0], cam, num_points=N_PTS,
+                               mono_z=bench.MONO_Z)
+    T = se3.compose(poses[1:], se3.inverse(poses[:1])).contiguous()
+    texels = ops.pack_texels(tgt.images[0], tgt.grad_x[0], tgt.grad_y[0])
+    err["lm_evaluate"] = check_lm_evaluate(texels, pts, T, cam, "lm_evaluate FC EUROC")
+    calls, bounds, library = pyramid_calls(frames[:1].contiguous(), bench.LEVELS)
+    ab = brightness(1, dev)
+    for name, form in (("lm_evaluate", None), ("lm_evaluate_affine", ab)):
+        sigma, ok = lm_scale(texels, pts, T, cam, True, form)
+        args = (pts.intensity, pts.valid, sigma, cam, WeightKind.HUBER)
+        evaluator = ops.LMEvaluator(texels, pts.p3d, *args, affine=form is not None)
+        calls[name] = (lambda e=evaluator, a=form: e(T, a),
+                       lambda a=args, f=form: ops.lm_evaluate_plain(texels, pts.p3d, T, *a,
+                                                                    ab=f))
+        bounds[name] = bound_lm_evaluate(pts.valid, ok, fc=True, affine=form is not None)
+    return err, time_pairs(calls, bounds, library)
 
 
 def phase_main_path(tracker, frames, poses, mono_z, table):
@@ -706,7 +996,8 @@ def phase_main_path(tracker, frames, poses, mono_z, table):
     ate = trajectory_ate(T_rel, poses)
     if not ate <= ATE_MAX:
         raise AssertionError(f"ATE {ate} m > {ATE_MAX} m")
-    T_cpu, _, _ = tracker(frames.cpu(), mono_z=mono_z)
+    with cpu_run():
+        T_cpu, _, _ = tracker(frames.cpu(), mono_z=mono_z)
     ate_cpu = trajectory_ate(T_cpu, poses)
     dev_cpu = float((se3.log(T_rel.cpu()) - se3.log(T_cpu)).abs().max())
     if not dev_cpu <= T_REL_ATOL:
@@ -798,21 +1089,25 @@ def time_pairs(pairs: dict, bounds: dict, library: dict) -> dict:
     ms per call of both (CUDA events around back-to-back calls: the host's
     dispatch where that is longer), its bound, and the library call's device
     ms where there is one."""
+    t0 = time.perf_counter()
     out = {}
     for name, (kernel, plain) in pairs.items():
         wk1, wp1, wp2, wk2 = (wall_ms(f) for f in (kernel, plain, plain, kernel))
         out[name] = {**turns(kernel, plain), "wall_ms": (wk1 + wk2) / 2,
                      "plain_wall_ms": (wp1 + wp2) / 2, **bounds[name],
                      "library_ms": call_ms(library[name])[0] if name in library else None}
+    _CLOCK["timing"] += time.perf_counter() - t0
     return out
 
 
-def phase_timing(pyr, pts, cam, T_rel):
+def phase_timing(pyr, pts, cam, T_rel, affine: bool = True):
     """Kernel vs plain version at the largest shape each has on the offline
     path (the pyramid kernel on the whole batch, K1 alone on level 0; K3
     level 1), with each kernel's bound from these inputs.
     `bilinear_sample` is the texel path the chunk runs, `bilinear_sample_planar`
-    the same sample from three planes; both beside `grid_sample`."""
+    the same sample from three planes; both beside `grid_sample`.
+    `lm_evaluate_affine` (with affine=True) is the same evaluation with a
+    brightness (a, b)."""
     from uwslam_tpu_torch import ops
     from uwslam_tpu_torch.tracking.photometric import ic_jacobian
     from uwslam_tpu_torch.tracking.points import TrackPoints
@@ -829,9 +1124,13 @@ def phase_timing(pyr, pts, cam, T_rel):
     valid = ref.valid & ok
     sigma = mad_sigma(torch.where(valid, vals[:, 0] - ref.intensity, 0.0), valid)
     pts0 = TrackPoints(uv=ref.uv, p3d=p3d, intensity=ref.intensity, valid=ref.valid)
-    lm_args = (ref.intensity, ref.valid, sigma, cam, WeightKind.HUBER,
-               ic_jacobian(pts0, ref.gx0, ref.gy0, cam))
+    J_ref = ic_jacobian(pts0, ref.gx0, ref.gy0, cam)
+    lm_args = (ref.intensity, ref.valid, sigma, cam, WeightKind.HUBER, J_ref)
     evaluator = ops.LMEvaluator(tgt0[:, 0], p3d, *lm_args)
+    ab = brightness(p3d.shape[0], tgt0.device)
+    sigma_ab, _ = lm_scale(tgt0[:, 0], pts0, T_rel, cam, False, ab)
+    ab_args = (ref.intensity, ref.valid, sigma_ab, cam, WeightKind.HUBER, J_ref)
+    evaluator_ab = ops.LMEvaluator(tgt0[:, 0], p3d, *ab_args, affine=True)
     sampler = ops.WarpSampler(tgt0, p3d, cam)
     pyr_calls, pyr_bounds, pyr_library = pyramid_calls(img0, pyr.levels)
     pairs = {
@@ -845,6 +1144,10 @@ def phase_timing(pyr, pts, cam, T_rel):
         "lm_evaluate": (lambda: evaluator(T_rel),
                         lambda: ops.lm_evaluate_plain(tgt0[:, 0], p3d, T_rel, *lm_args)),
     }
+    if affine:
+        pairs["lm_evaluate_affine"] = (
+            lambda: evaluator_ab(T_rel, ab),
+            lambda: ops.lm_evaluate_plain(tgt0[:, 0], p3d, T_rel, *ab_args, ab=ab))
     ok1 = ops.cuda_bilinear_sample(stack1, uv1)[1]
     bounds = {
         **pyr_bounds,
@@ -852,6 +1155,7 @@ def phase_timing(pyr, pts, cam, T_rel):
         "bilinear_sample": bound_sampler(ok1, 3, 8),
         "bilinear_sample_planar": bound_sampler(ok1, 3, 8),
         "lm_evaluate": bound_lm_evaluate(ref.valid, ok, fc=False),
+        "lm_evaluate_affine": bound_lm_evaluate(ref.valid, ok, fc=False, affine=True),
     }
     grid = grid_sample_call(stack1, uv1)
     return time_pairs(pairs, bounds, {"bilinear_sample": grid,
@@ -956,7 +1260,8 @@ def phase_parity_live(ref, tgt, pts, cam, track_levels, what: str, describe: boo
     """Kernels at a path's B = 1 shapes against their plain versions: the
     pyramid kernel's `ref` field by field and level by level, and K1 alone on
     each of its levels; at each track level K3 (C = 1, the FC
-    reference pass), K2 (C = 1 and C = 3 texels) and `lm_evaluate` (FC) for
+    reference pass), K2 (C = 1 and C = 3 texels) and `lm_evaluate` (FC, the
+    pose alone and with affine brightness) for
     the pair (ref, tgt) with `ref`'s points `pts`; with describe=True K3 at
     the descriptor taps of every level. `what` names the path in a failure.
     Returns ({kernel: max abs error}, what `time_pairs` takes: {kernel:
@@ -1007,6 +1312,10 @@ def phase_parity_live(ref, tgt, pts, cam, track_levels, what: str, describe: boo
                               pts_l.valid & ok)
             lm_args = (pts_l.intensity, pts_l.valid, sigma, cam_l, WeightKind.HUBER)
             evaluator = ops.LMEvaluator(texels, q, *lm_args)
+            ab = brightness(1, dev)
+            sigma_ab, _ = lm_scale(texels, pts_l, T_move, cam_l, True, ab)
+            ab_args = (pts_l.intensity, pts_l.valid, sigma_ab, cam_l, WeightKind.HUBER)
+            evaluator_ab = ops.LMEvaluator(texels, q, *ab_args, affine=True)
             calls["warp_sample"] = (
                 lambda: sampler(T_move),
                 lambda c=cam_l: ops.warp_and_sample_plain(plane, q, T_move, c))
@@ -1016,9 +1325,14 @@ def phase_parity_live(ref, tgt, pts, cam, track_levels, what: str, describe: boo
             calls["lm_evaluate"] = (
                 lambda: evaluator(T_move),
                 lambda: ops.lm_evaluate_plain(texels, q, T_move, *lm_args))
+            calls["lm_evaluate_affine"] = (
+                lambda: evaluator_ab(T_move, ab),
+                lambda: ops.lm_evaluate_plain(texels, q, T_move, *ab_args, ab=ab))
             bounds["warp_sample"] = bound_sampler(ok, 1, 12)
             bounds["warp_sample_texels"] = bound_sampler(ok, 3, 12)
             bounds["lm_evaluate"] = bound_lm_evaluate(pts_l.valid, ok, fc=True)
+            bounds["lm_evaluate_affine"] = bound_lm_evaluate(pts_l.valid, ok, fc=True,
+                                                             affine=True)
     if not describe:
         return err, (calls, bounds, library)
     fcfg = live_config().features
@@ -1066,7 +1380,8 @@ def card_vs_cpu(card_states, cpu_states, what: str) -> float:
 
 def phase_live(frames, poses, table, cpu_states):
     """Configuration 1 live on the card with fresh launch counts; the CPU's
-    run of the first frames (`cpu_states`) must agree."""
+    run of the first frames (`cpu_states()`, read once the card's run is
+    done) must agree."""
     for k in table:
         k["wrapper"].launches = 0
     system, states, frame_ms = run_live(frames, frames.device, events=True)
@@ -1083,6 +1398,7 @@ def phase_live(frames, poses, table, cpu_states):
     ate = live_ate(system, poses)
     if not ate <= LIVE_ATE_MAX:
         raise AssertionError(f"live ATE {ate} m > {LIVE_ATE_MAX} m")
+    cpu_states = cpu_states()
     dev_cpu = card_vs_cpu(states, cpu_states, "live path")
     return {
         "launches": launches, "ate": ate, "card_vs_cpu": dev_cpu,
@@ -1277,22 +1593,27 @@ def phase_depth_kernel(depths, pts):
     return errs, time_pairs(pairs, bounds, library)
 
 
-def phase_depth_paths(frames, poses, depths, table):
+def phase_depth_paths(frames, poses, depths, table, worker):
     """The offline IC chunk, `track_sequence` (FC) and the live path with the
-    plane's depth frames and a wrong monocular depth (1, the plane is at 2)."""
+    plane's depth frames and a wrong monocular depth (1, the plane is at 2);
+    the CPU's runs of the first frames from `worker`, the live path in a
+    process of its own (`ProcessRuns`) beside the offline ones."""
+    with tempfile.TemporaryDirectory() as tmp:
+        side = ProcessRuns(Path(tmp) / "side", "system", {"live_rgbd": None},
+                           {"frames": frames.cpu(), "depths": depths.cpu()})
+        try:
+            return depth_runs(frames, poses, depths, table, worker, side)
+        finally:
+            side.stop()
+
+
+def depth_runs(frames, poses, depths, table, worker, side):
     from uwslam_tpu_torch import bench
     from uwslam_tpu_torch.lie import se3
-    from uwslam_tpu_torch.tracking.sequence import SequenceTracker
 
     out = {}
     n_cpu = DEPTH_CPU_FRAMES
-    trackers = {
-        "chunk_ic": (bench.make_tracker(bench.CAM), False),
-        "track_sequence_fc": (SequenceTracker(
-            bench.CAM, levels=bench.LEVELS, track_levels=bench.TRACK_LEVELS,
-            num_points=bench.NUM_POINTS, max_iters=bench.ITERS, mode="fc"), True),
-    }
-    for name, (tracker, sequential) in trackers.items():
+    for name, (tracker, sequential) in _depth_trackers().items():
         t0 = time.perf_counter()
         (T_rel, inliers, _), launches = counted(table, name, lambda: tracker(
             frames, mono_z=1.0, depth_frames=depths, sequential=sequential))
@@ -1300,27 +1621,25 @@ def phase_depth_paths(frames, poses, depths, table):
         ate = bench.trajectory_ate(T_rel, poses)
         if not ate <= ATE_MAX:
             raise AssertionError(f"{name} with depth frames: ATE {ate} m > {ATE_MAX} m")
-        T_cpu, _, _ = tracker(frames[:n_cpu].cpu(), mono_z=1.0,
-                              depth_frames=depths[:n_cpu].cpu(), sequential=sequential)
+        T_cpu, _ = worker.result(f"depth_{name}")
         dev_cpu = float((se3.log(T_rel[: n_cpu - 1].cpu()) - se3.log(T_cpu)).abs().max())
         if not dev_cpu <= T_REL_ATOL:
             raise AssertionError(f"{name}: card vs CPU se3.log differs by {dev_cpu}")
         out[name] = {"ate": ate, "card_vs_cpu": dev_cpu, "cpu_frames": n_cpu,
                      "min_inliers": int(inliers.min()), "launches": launches,
                      "card_s": round(card_s, 2)}
-    t0 = time.perf_counter()
-    (system, states, _), launches = counted(table, "the live RGB-D path", lambda: run_live(
-        frames, frames.device, depths=depths, mono_depth=1.0))
-    bad = [(s.frame_id, s.status) for s in states if s.status != "ok"]
+    rgbd, card_s = side.result("live_rgbd")
+    system = RunRecord(rgbd)
+    bad = [(s.frame_id, s.status) for s in system.trajectory if s.status != "ok"]
     if bad:
         raise AssertionError(f"live RGB-D frames not ok: {bad[:10]}")
     ate = live_ate(system, poses)
     if not ate <= LIVE_ATE_MAX:
         raise AssertionError(f"live RGB-D ATE {ate} m > {LIVE_ATE_MAX} m")
-    if system.graph_replays:
+    if rgbd["graph_replays"]:
         raise AssertionError("frames with depth images must take the synchronous path")
-    out["live_rgbd"] = {"ate": ate, "keyframes": int(sum(s.is_keyframe for s in states)),
-                        "launches": launches, "card_s": round(time.perf_counter() - t0, 2)}
+    out["live_rgbd"] = {"ate": ate, "keyframes": int(sum(s.is_keyframe for s in system.trajectory)),
+                        "launches": rgbd["launches"], "card_s": round(card_s, 2)}
     return out
 
 
@@ -1359,9 +1678,10 @@ def states_vs_cpu(card, cpu, what: str) -> float:
     return card_vs_cpu(card.trajectory, cpu.trajectory, what)
 
 
-def phase_pipelined(frames, poses, table, sync_ate: float):
+def phase_pipelined(frames, poses, table, sync_ate: float, worker):
     """96 frames through the pipelined loop on the card with fresh launch
-    counts, against the CPU's pipelined run and the synchronous run's ATE."""
+    counts, against the CPU's pipelined run (`worker`) and the synchronous
+    run's ATE."""
     t0 = time.perf_counter()
     (system, frame_ms), launches = counted(table, "the pipelined path", lambda: run_pipelined(
         frames, frames.device, events=True))
@@ -1378,26 +1698,25 @@ def phase_pipelined(frames, poses, table, sync_ate: float):
     ate = live_ate(system, poses)
     if not ate <= LIVE_ATE_MAX or not abs(ate - sync_ate) <= PIPE_VS_SYNC_ATE:
         raise AssertionError(f"pipelined ATE {ate} m (synchronous {sync_ate} m)")
-    t0 = time.perf_counter()
-    cpu, _ = run_pipelined(frames.cpu(), "cpu")
+    cpu, cpu_s = worker.result("pipelined")
+    cpu = RunRecord(cpu)
     dev_cpu = states_vs_cpu(system, cpu, "pipelined loop")
     return {
         "launches": launches, "graph_replays": system.graph_replays, "ate": ate,
         "sync_ate": sync_ate, "card_vs_cpu": dev_cpu,
         "keyframes": [s.frame_id for s in system.trajectory if s.is_keyframe],
-        "card_s": round(card_s, 2), "cpu_s": round(time.perf_counter() - t0, 2),
+        "card_s": round(card_s, 2), "cpu_s": round(cpu_s, 2),
     }, frame_ms
 
 
-def phase_pipelined_reloc(noisy, poses):
+def phase_pipelined_reloc(noisy, poses, worker):
     """The relocalization sequence through the pipelined loop, on the card
-    and on the CPU: statuses, keyframes and poses must agree frame by frame
-    (`states_vs_cpu`), which holds the late failure, the drain and the
-    re-entry to the port's CPU run; the ATE bars come second."""
+    and on the CPU (`worker`): statuses, keyframes and poses must agree frame
+    by frame (`states_vs_cpu`), which holds the late failure, the drain and
+    the re-entry to the port's CPU run; the ATE bars come second."""
     system, _ = run_pipelined(noisy, noisy.device)
-    t0 = time.perf_counter()
-    cpu, _ = run_pipelined(noisy.cpu(), "cpu")
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_s = worker.result("pipelined_reloc")
+    cpu = RunRecord(cpu)
     dev_cpu = states_vs_cpu(system, cpu, "pipelined relocalization run")
     status = [s.status for s in system.trajectory]
     first_bad = next(i for i, st in enumerate(status) if st != "ok")
@@ -1598,7 +1917,8 @@ def phase_rectification(poses, table):
     del probe, pyrs
     (system, _), launches = counted(table, "the rectified path", lambda: run_pipelined(
         frames, frames.device, raw=raw))
-    cpu, _ = run_pipelined(frames.cpu(), "cpu", raw=raw)
+    with cpu_run():
+        cpu, _ = run_pipelined(frames.cpu(), "cpu", raw=raw)
     if system._roi != cpu._roi or system.cam != cpu.cam:
         raise AssertionError(f"ROI or camera differ: card {system._roi} {system.cam}, "
                              f"CPU {cpu._roi} {cpu.cam}")
@@ -1670,7 +1990,8 @@ def phase_ba(gpu: str):
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         raise AssertionError("two bundle_adjust runs on the card differ")
     t0 = time.perf_counter()
-    cpu = bundle_adjust(BAProblem(*(t.cpu() for t in problem)), bench.CAM, **kw)
+    with cpu_run():
+        cpu = bundle_adjust(BAProblem(*(t.cpu() for t in problem)), bench.CAM, **kw)
     cpu_s = time.perf_counter() - t0
     c0, c, c_cpu = float(again.initial_cost), float(again.cost), float(cpu.cost)
     if not (c < c0 and abs(c - c_cpu) <= BA_COST_RTOL * c_cpu):
@@ -1761,9 +2082,10 @@ def phase_refine_kernel(frames, pts, cam):
     launches = ops.cuda_bilinear_sample.launches - before
     if launches != 5:
         raise AssertionError(f"refine_inverse_depth launched K3 {launches} times, not 5")
-    cpu = refine_inverse_depth(
-        type(one)(*(None if f is None else f.cpu() for f in one)), T.cpu(),
-        *(x[0].cpu() for x in (pyr.images, pyr.grad_x, pyr.grad_y)), cam)
+    with cpu_run():
+        cpu = refine_inverse_depth(
+            type(one)(*(None if f is None else f.cpu() for f in one)), T.cpu(),
+            *(x[0].cpu() for x in (pyr.images, pyr.grad_x, pyr.grad_y)), cam)
     rho_dev = float((ref.inv_depth.cpu() - cpu.inv_depth).abs().max())
     flips = int((ref.good.cpu() != cpu.good).sum())
     if not rho_dev <= 1e-4 or flips > 4:
@@ -1844,9 +2166,26 @@ def pose_gap(a, b, n: int | None = None) -> float:
     return float((se3.log(pa) - se3.log(pb)).abs().max())
 
 
-def phase_config2(scene, scene_poses, plane_frames, plane_poses, table):
+def phase_config2(scene, scene_poses, plane_frames, plane_poses, table, worker):
     """Config 2 on the card, synchronous, with and without the bootstrap,
-    against the port's CPU run; and the reference-mode preset."""
+    against the port's CPU run (`worker`); and the reference-mode preset.
+    The runs without the bootstrap and in reference mode, then phase 16a's
+    comparison (`phase_boot_graph_vs_eager`, its result under
+    "boot_graph_vs_eager"), go on in a process of their own (`ProcessRuns`)
+    beside the bootstrap's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        side = ProcessRuns(Path(tmp) / "side", "system",
+                           dict.fromkeys(("config2_flat", "reference_mode", "boot_graph_vs_eager")),
+                           {"scene": scene.cpu(), "plane": plane_frames[:SCENE_FRAMES].cpu()})
+        try:
+            out, boot = config2_runs(scene, scene_poses, plane_poses, table, worker, side)
+            out["boot_graph_vs_eager"] = side.result("boot_graph_vs_eager")[0]
+        finally:
+            side.stop()
+    return out, boot
+
+
+def config2_runs(scene, scene_poses, plane_poses, table, worker, side):
     dev = scene.device
     t0 = time.perf_counter()
     boot = front_end_system(dev, bootstrap=True)
@@ -1855,24 +2194,17 @@ def phase_config2(scene, scene_poses, plane_frames, plane_poses, table):
     all_ok(boot, "config 2")
     if installed is None or installed > PRIOR_INSTALLED_BY:
         raise AssertionError(f"depth prior installed at frame {installed}")
-    again = front_end_system(dev, bootstrap=True)
-    drive(again, scene)
-    if pose_gap(boot, again) != 0.0:
-        raise AssertionError("two config-2 runs on the card differ")
-    flat = front_end_system(dev)
-    drive(flat, scene)
-    all_ok(flat, "config 2 at constant depth")
-    ate, ate_flat = live_ate(boot, scene_poses), live_ate(flat, scene_poses)
-    if not (ate < ate_flat and ate <= CONFIG2_ATE_MAX):
-        raise AssertionError(f"bootstrap ATE {ate} m, constant depth {ate_flat} m")
     # The CPU runs the first CONFIG2_CPU_FRAMES frames; without BA a frame's
     # exported pose is final once tracked, so the card's run of all frames
-    # holds the card's run of the prefix.
-    t0 = time.perf_counter()
+    # holds the card's run of the prefix. The second card run and the run
+    # with noise take that prefix too: the frames the CPU is held on.
     n_cpu = CONFIG2_CPU_FRAMES
-    cpu = front_end_system("cpu", bootstrap=True)
-    drive(cpu, scene[:n_cpu].cpu())
-    cpu_s = time.perf_counter() - t0
+    again = front_end_system(dev, bootstrap=True)
+    drive(again, scene[:n_cpu])
+    if pose_gap(boot, again, n_cpu) != 0.0:
+        raise AssertionError(f"two config-2 runs on the card differ over {n_cpu} frames")
+    cpu, cpu_s = worker.result("config2")
+    cpu = RunRecord(cpu)
     all_ok(cpu, "config 2 on the CPU")
     ate_prefix = live_ate(boot, scene_poses, keep=slice(0, n_cpu))
     ate_cpu, gap = live_ate(cpu, scene_poses[:n_cpu]), pose_gap(boot, cpu, n_cpu)
@@ -1881,25 +2213,27 @@ def phase_config2(scene, scene_poses, plane_frames, plane_poses, table):
             and abs(ate_prefix - ate_cpu) <= 0.15 * ate_cpu and gap <= CONFIG2_POSE_ATOL):
         raise AssertionError(f"config 2 card vs CPU over {n_cpu} frames: ATE {ate_prefix} vs "
                              f"{ate_cpu} m, poses {gap}")
-    # How far last-bit differences carry on this path: the same frames plus
+    # How far last-bit differences carry on this path: the CPU's frames plus
     # noise far below one gray level, on the card.
     noise = CONFIG2_NOISE * torch.randn(scene.shape, generator=torch.Generator().manual_seed(0))
     shaken = front_end_system(dev, bootstrap=True)
-    drive(shaken, scene + noise.to(dev))
+    drive(shaken, (scene + noise.to(dev))[:n_cpu])
     all_ok(shaken, "config 2 with 1e-4 of noise")
-    by_noise = pose_gap(boot, shaken)
+    by_noise = pose_gap(boot, shaken, n_cpu)
     if not by_noise <= CONFIG2_POSE_ATOL:
         raise AssertionError(f"1e-4 gray levels of noise moved config 2's poses by {by_noise}")
-    ref = front_end_system(dev, reference=True,
-                           tracker=live_config().tracker)
+    beside = {key: side.result(key)[0] for key in ("config2_flat", "reference_mode")}
+    flat = RunRecord(beside["config2_flat"])
+    all_ok(flat, "config 2 at constant depth")
+    ate, ate_flat = live_ate(boot, scene_poses), live_ate(flat, scene_poses)
+    if not (ate < ate_flat and ate <= CONFIG2_ATE_MAX):
+        raise AssertionError(f"bootstrap ATE {ate} m, constant depth {ate_flat} m")
     n = SCENE_FRAMES
-    drive(ref, plane_frames[:n])
+    ref = RunRecord(beside["reference_mode"])
     all_ok(ref, "reference mode")
     ate_ref = live_ate(ref, plane_poses[:n])
-    # The last pair was tracked on patch points if its verified matches
-    # reached the front end's minimum (else the top-K selection stands in).
-    matches = int(ref._last_matches[2].sum())
-    if not ate_ref <= REFERENCE_ATE_MAX or matches < ref.config.features.min_matches:
+    matches = beside["reference_mode"]["matches"]
+    if not ate_ref <= REFERENCE_ATE_MAX or matches < beside["reference_mode"]["min_matches"]:
         raise AssertionError(f"reference mode: ATE {ate_ref} m, {matches} matches")
     kfs = lambda s: [x.frame_id for x in s.trajectory if x.is_keyframe]   # noqa: E731
     return {
@@ -2066,9 +2400,20 @@ def check_match_tables(system, seen) -> int:
     return len(seen)
 
 
-def phase_config4(frames, poses, table, plain_frame_ms):
+def phase_config4(frames, poses, table, plain_frame_ms, worker):
     """Window BA: `use_features` + `use_ba` synchronous against the run
-    without BA and the CPU's; then the pipelined loop with BA on and off."""
+    without BA (in a process of its own, `ProcessRuns`) and the CPU's
+    (`worker`); then the pipelined loop with BA on and off."""
+    with tempfile.TemporaryDirectory() as tmp:
+        side = ProcessRuns(Path(tmp) / "side", "system", {"config4_without": None},
+                           {"plane": frames.cpu()})
+        try:
+            return config4_runs(frames, poses, table, plain_frame_ms, worker, side)
+        finally:
+            side.stop()
+
+
+def config4_runs(frames, poses, table, plain_frame_ms, worker, side):
     dev = frames.device
     t0 = time.perf_counter()
     with_ba = ba_system(dev, features=True)
@@ -2078,8 +2423,7 @@ def phase_config4(frames, poses, table, plain_frame_ms):
     stats = dict(with_ba.ba_stats)
     if stats["runs"] < 1 or stats["iters"] < 1 or with_ba._ba_inflight is not None:
         raise AssertionError(f"config 4: no window solve was retired: {stats}")
-    without = front_end_system(dev, tracker=live_config().tracker)
-    drive(without, frames)
+    without = RunRecord(side.result("config4_without")[0])
     ate, ate_without = live_ate(with_ba, poses), live_ate(without, poses)
     if not (ate <= 1.1 * ate_without and ate <= FEATURES_BA_ATE_MAX):
         raise AssertionError(f"config 4 ATE {ate} m, without BA {ate_without} m")
@@ -2091,10 +2435,8 @@ def phase_config4(frames, poses, table, plain_frame_ms):
     n_cpu = CONFIG4_CPU_FRAMES
     prefix = ba_system(dev, features=True)
     drive(prefix, frames[:n_cpu])
-    t0 = time.perf_counter()
-    cpu = ba_system("cpu", features=True)
-    drive(cpu, frames[:n_cpu].cpu())
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_s = worker.result("config4")
+    cpu = RunRecord(cpu)
     gap = pose_gap(prefix, cpu)
     runs_prefix = prefix.ba_stats["runs"]
     if not gap <= LIVE_T_ATOL or cpu.ba_stats["runs"] != runs_prefix or runs_prefix < 1:
@@ -2132,24 +2474,27 @@ def phase_config4(frames, poses, table, plain_frame_ms):
     }
 
 
-def phase_cli_front_end(frames, poses):
-    """The CLI's flags of configs 2 and 4 and `--photo-ba` on the 8-bit
-    dataset of phase 8."""
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        rgb, calib, gt = write_dataset(frames[:CLI_FRAMES], poses[:CLI_FRAMES], Path(tmp))
-        base = ["-d", str(rgb), "-c", str(calib), "--tum-gt", str(gt), "--levels", "3",
-                "--track-levels", "1,0", "--mono-depth", "2.0", "--platform", "cuda"]
-        for name, extra in (("features_depth_bootstrap", ["--features", "--depth-bootstrap"]),
-                            ("features_ba", ["--features", "--ba"]),
-                            # Keyframes 0, 10, 20, 30: two photometric solves.
-                            ("photo_ba", ["--photo-ba", "--kf-max-gap", "10"])):
-            out[name] = run_cli(base + extra + ["--trajectory-out",
-                                                str(Path(tmp) / f"{name}.txt")], name)
-            if not out[name]["ate"] <= CLI_ATE_MAX:
-                raise AssertionError(f"CLI {name}: ATE {out[name]['ate']} m > {CLI_ATE_MAX} m")
-            if name == "photo_ba" and not out[name].get("ba_runs"):
-                raise AssertionError(f"CLI {name}: no window solve reported")
+def cli_front_end_argv(frames, poses, root: Path) -> dict:
+    """Phase 18's CLI runs on the 8-bit dataset of phase 8 (written under
+    `root`): {name: argv} for the flags of configs 2 and 4 and `--photo-ba`."""
+    rgb, calib, gt = write_dataset(frames[:CLI_FRAMES], poses[:CLI_FRAMES], root)
+    base = ["-d", str(rgb), "-c", str(calib), "--tum-gt", str(gt), "--levels", "3",
+            "--track-levels", "1,0", "--mono-depth", "2.0", "--platform", "cuda"]
+    return {name: base + extra + ["--trajectory-out", str(root / f"{name}.txt")]
+            for name, extra in (("features_depth_bootstrap", ["--features", "--depth-bootstrap"]),
+                                ("features_ba", ["--features", "--ba"]),
+                                # Keyframes 0, 10, 20, 30: two photometric solves.
+                                ("photo_ba", ["--photo-ba", "--kf-max-gap", "10"]))}
+
+
+def cli_front_end_check(out: dict) -> dict:
+    """Phase 18's runs (`_side_cli_front_end`): exit 0 (`run_cli`), ATE within
+    CLI_ATE_MAX, and `--photo-ba`'s window solves reported."""
+    for name, r in out.items():
+        if not r["ate"] <= CLI_ATE_MAX:
+            raise AssertionError(f"CLI {name}: ATE {r['ate']} m > {CLI_ATE_MAX} m")
+    if not out["photo_ba"].get("ba_runs"):
+        raise AssertionError("CLI photo_ba: no window solve reported")
     return out
 
 
@@ -2223,17 +2568,18 @@ def photo_system(device):
     return SlamSystem(calib, config, device=device)
 
 
-def phase_photo_ba(frames, poses, table):
+def phase_photo_ba(frames, poses, table, window, worker):
     """K3 at the photometric solve's shapes against its plain version; the
-    window solve eager and as a graph, against the CPU; the 96 bench frames
-    with photometric window BA, synchronous and pipelined."""
+    window solve (`window`: `photo_window`'s) eager and as a graph, against
+    the CPU's (`worker`); the 96 bench frames with photometric window BA,
+    synchronous and pipelined."""
     from uwslam_tpu_torch import ops
     from uwslam_tpu_torch.ba import photometric as pba
     from uwslam_tpu_torch.lie import se3
     from uwslam_tpu_torch.ops.graph import CapturedStep, tree_clone
 
     dev = frames.device
-    prob, cam, T_gt = photo_window(dev)
+    prob, cam, T_gt = window
     texels = pba.photo_texels(prob)
     uv = pba._project(prob, cam)[-1].contiguous()
     ref_img = prob.images[:, None].contiguous()
@@ -2257,9 +2603,7 @@ def phase_photo_ba(frames, poses, table):
         {"photo": grid_sample_call(planes, uv), "photo_ref": grid_sample_call(ref_img, prob.uv)},
     )
 
-    def solve(*fields):
-        return tuple(pba.photometric_bundle_adjust(pba.PhotoBAProblem(*fields), cam,
-                                                   max_iters=PHOTO_MAX_ITERS))
+    solve = photo_solve(cam)
 
     def gap(T_a, T_b) -> float:
         return float(se3.log(se3.compose(T_a, se3.inverse(T_b))).abs().max())
@@ -2293,19 +2637,12 @@ def phase_photo_ba(frames, poses, table):
     torch.cuda.synchronize()
     replay_ms = start.elapsed_time(end)
     busy_ms, kernels = profile_once(lambda: step(*prob))
+    (cpu, cpu_s, by_threads), _ = worker.result("photo_solve")
     on_cpu = pba.PhotoBAProblem(*(t.cpu() for t in prob))
-    t0 = time.perf_counter()
-    cpu = solve(*on_cpu)
-    cpu_s = time.perf_counter() - t0
-    threads = torch.get_num_threads()
-    by_threads = {}
-    for n in (1, 2, 4):
-        torch.set_num_threads(n)
-        by_threads[n] = float(solve(*on_cpu)[2])
-    torch.set_num_threads(threads)
-    at_card = on_cpu._replace(T_cw=first[0].cpu(), inv_depth=first[1].cpu())
-    c_at_card = float(pba._cost(*pba._observations(at_card, cam, jacobians=False),
-                                12.0))                      # the solve's default Huber delta
+    with cpu_run():
+        at_card = on_cpu._replace(T_cw=first[0].cpu(), inv_depth=first[1].cpu())
+        c_at_card = float(pba._cost(*pba._observations(at_card, cam, jacobians=False),
+                                    12.0))                  # the solve's default Huber delta
     c0, c, c_cpu = float(first[3]), float(first[2]), float(cpu[2])
     solve_gap = gap(first[0].cpu(), cpu[0])
     if not (c < c0 and abs(c - c_at_card) <= PHOTO_COST_RTOL * c_at_card
@@ -2348,10 +2685,8 @@ def phase_photo_ba(frames, poses, table):
             and ate_sync <= bars[0] and ate_pipe <= bars[1]):
         raise AssertionError(f"photometric BA: ATE {ate_sync} m synchronous, {ate_pipe} m "
                              f"pipelined, bars {bars} m; the loops' poses differ by {pipe_gap}")
-    t0 = time.perf_counter()
-    cpu_sys = photo_system("cpu")
-    drive(cpu_sys, frames.cpu())
-    cpu_s = time.perf_counter() - t0
+    cpu_sys, cpu_s = worker.result("photo_ba")
+    cpu_sys = RunRecord(cpu_sys)
     if cpu_sys.ba_stats["runs"] != runs[0]:
         raise AssertionError(f"the CPU ran {cpu_sys.ba_stats} solves, the card {runs[0]}")
     dev_cpu = card_vs_cpu(sync.trajectory, cpu_sys.trajectory, "photometric BA")
@@ -2409,7 +2744,7 @@ CONFIG5_LONG_ATE_MAX = CONFIG5_ATE_RATIO * max(JAX_LONG_FRAMES_ATE[5].values())
 # (`scripts/jax_config5_spread.py`; ROADMAP section 3). Each run is held to
 # eval.py's health checks and the ATE bar.
 CPU_RUN_THREADS = 4      # the port's CPU run of config 5, beside the card's runs
-CPU_RUN_TIMEOUT_S = 600
+RUN_TIMEOUT_S = 600     # a run in a process of its own (`ProcessRuns`)
 DIST_TRUTH_ATOL = 5e-3                         # tests/test_parallel.py:99-110
 RIGID_ATOL = 1e-4                              # a keyframe pose's R^T R against I
 
@@ -2442,6 +2777,7 @@ ENTRY_T_ATOL = 1e-4      # se3.log, entry() on the card against the CPU
 # frames of 640 x 480; 120 EUROC frames of 752 x 480 rectified to 736 x 480),
 # rendered on the card by `uwslam_tpu_torch.eval` and run through the CLI.
 EVAL_CONFIGS = (0, 1, 2, 3, 4, 8, 9, 10)
+AFFINE_CONFIGS = (2, 3)   # eval.py's configs with --affine (and Huber weights)
 EVAL_TUM_FRAMES, EVAL_EUROC_FRAMES = 150, 120
 # The sequences phases 24 and 20 render on the card, under eval.py's names
 # (`render_eval_dataset`; `python scripts/chip_phases.py frames DIR` writes them).
@@ -2649,36 +2985,12 @@ def run_loop_config(data_args, config: int, platform: str, table=None,
     return out
 
 
-def start_cpu_config5(data_args, out: Path) -> subprocess.Popen:
-    """The port's CPU run of config 5 in a process of its own, so that it
-    runs while the card's runs do (`--cpu-config5`, below)."""
-    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-config5",
-                             str(out), *data_args])
-
-
-def cpu_config5(out: str, data_args) -> None:
-    """Body of the `--cpu-config5` process: config 5 on the CPU over the first
-    QUICK_CPU_FRAMES frames, window solves retired at once as in phase
-    20(a)'s card runs, its result and exported poses to `out` (.json and
-    .npy)."""
-    torch.set_num_threads(CPU_RUN_THREADS)
-    r = run_loop_config(data_args, 5, "cpu", retire_at_once=True, max_frames=QUICK_CPU_FRAMES)
-    np.save(out + ".npy", r.pop("_poses"))
-    Path(out + ".json").write_text(json.dumps(r))
-
-
-def finish_cpu_config5(proc: subprocess.Popen, out: Path) -> dict:
-    try:
-        rc = proc.wait(timeout=CPU_RUN_TIMEOUT_S)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if rc != 0:
-        raise AssertionError(f"the CPU run of config 5 exited {rc}")
-    r = json.loads(Path(str(out) + ".json").read_text())
-    r["_poses"] = np.load(str(out) + ".npy")
-    return r
+def start_cpu_config5(root: Path, data_args) -> ProcessRuns:
+    """The port's CPU run of config 5 (`_job_config5_quick`) in a process of
+    its own at CPU_RUN_THREADS threads, so that it runs while the card's runs
+    do."""
+    return ProcessRuns(root, "cpu", {"config5_quick": None}, {"quick": data_args},
+                       threads=CPU_RUN_THREADS)
 
 
 def health_checks(config: int, r: dict) -> None:
@@ -2801,7 +3113,17 @@ def card_loop_configs(tmp, quick, dev, table) -> dict:
     6's (`global_ba_check`); (c) config 5 at the full-size path's first
     PHASE20_LONG_FRAMES frames as the CLI runs it, its health checks, ATE
     bar and kernels; (d) the sharded solve and the pose graph."""
-    a, again = (run_loop_config(quick, 5, "cuda", retire_at_once=True) for _ in range(2))
+    # Configs 6 and 7 in a process of their own while this one runs config 5
+    # twice (all retire their solves at once: the same bits beside any load).
+    side = ProcessRuns(Path(tmp) / "loop_side", "loop", {c: quick for c in (6, 7)})
+    try:
+        full = write_tum_sequence(Path(tmp) / "full", PHASE20_LONG_FRAMES, FULL_LOOP_PERIOD,
+                                  dev)
+        check_digest(Path(tmp) / "full", f"tum_long_{PHASE20_LONG_FRAMES}")
+        a, again = (run_loop_config(quick, 5, "cuda", retire_at_once=True) for _ in range(2))
+        quick67 = {c: side.result(c)[0] for c in (6, 7)}
+    finally:
+        side.stop()
     if not (np.array_equal(a["_poses"], again["_poses"])
             and all(a[k] == again[k] for k in ("ate", "keyframes", "loop_edges"))
             and all(a["dist_ba"][k] == again["dist_ba"][k]
@@ -2810,12 +3132,10 @@ def card_loop_configs(tmp, quick, dev, table) -> dict:
     health_checks(5, a)
     out = {"a_card": a}
     for config in (6, 7):
-        r = run_loop_config(quick, config, "cuda", retire_at_once=True)
+        r = quick67[config]
         health_checks(config, r)
-        out[f"b_quick_config{config}"] = strip_poses(r)
+        out[f"b_quick_config{config}"] = r
     out["b_global_ba_earns_its_place"] = global_ba_check(a, out["b_quick_config6"])
-    full = write_tum_sequence(Path(tmp) / "full", PHASE20_LONG_FRAMES, FULL_LOOP_PERIOD, dev)
-    check_digest(Path(tmp) / "full", f"tum_long_{PHASE20_LONG_FRAMES}")
     r = run_loop_config(full, 5, "cuda", table)
     health_checks(5, r)
     if not r["ate"] <= CONFIG5_LONG_ATE_MAX:
@@ -2885,40 +3205,53 @@ def phase_pose_graph(dev) -> dict:
     return out
 
 
-def phase_loop_configs(table) -> dict:
-    """Configs 5, 6 and 7 (phase 20): the card's runs while the port's CPU
-    run of config 5 at the quick size goes on in a process of its own; then
-    the card's run against the CPU's, reported (the comparisons config 2 is
-    held to do not hold on this path: see the note below CPU_RUN_THREADS)."""
+def phase_loop_configs(table, root: Path) -> tuple[dict, tuple]:
+    """Configs 5, 6 and 7 (phase 20) on the card, their sequences rendered
+    under `root`, while the port's CPU run of config 5 at the quick size
+    goes on in a process of its own -> (the card's results, the CPU run for
+    `phase_loop_cpu`). The CPU run is read after the card's phases that
+    follow (21-23), so that it runs beside their work too; whoever calls
+    this stops it (`ProcessRuns.stop`) if it is still running when they fail."""
     dev = torch.device("cuda", 0)
-    with tempfile.TemporaryDirectory() as tmp:
-        quick = write_tum_sequence(Path(tmp) / "quick", QUICK_FRAMES, QUICK_LOOP_PERIOD, dev)
-        digest = check_digest(Path(tmp) / "quick", f"tum_long_{QUICK_FRAMES}")
-        cpu_out = Path(tmp) / "cpu_config5"
-        cpu_proc = start_cpu_config5(quick, cpu_out)
-        try:
-            out = card_loop_configs(tmp, quick, dev, table)
-        except BaseException:
-            cpu_proc.kill()
-            cpu_proc.wait()
-            raise
-        c = finish_cpu_config5(cpu_proc, cpu_out)
-    health_checks(5, c)
-    a = out.pop("a_card")
-    for run, what in ((a, "card"), (c, "CPU")):
-        if not run["ate"] <= CONFIG5_QUICK_ATE_MAX:
-            raise AssertionError(f"config 5 quick, {what}: ATE {run['ate']} m > "
+    quick = write_tum_sequence(root / "quick", QUICK_FRAMES, QUICK_LOOP_PERIOD, dev)
+    digest = check_digest(root / "quick", f"tum_long_{QUICK_FRAMES}")
+    cpu_run5 = start_cpu_config5(root / "cpu_config5", quick)
+    try:
+        out = card_loop_configs(root, quick, dev, table)
+        a = out.pop("a_card")
+        if not a["ate"] <= CONFIG5_QUICK_ATE_MAX:
+            raise AssertionError(f"config 5 quick, card: ATE {a['ate']} m > "
                                  f"{CONFIG5_QUICK_ATE_MAX} m")
+    except BaseException:
+        cpu_run5.stop()
+        raise
+    out["a_quick_config5"] = {"frames_digest": digest, "ate_bar": CONFIG5_QUICK_ATE_MAX,
+                              "jax_cpu_ate": JAX_QUICK_FRAMES_ATE[5], "card": strip_poses(a)}
+    return out, (cpu_run5, a["_poses"])
+
+
+def phase_loop_cpu(loops: dict, cpu: tuple) -> dict:
+    """Phase 20's CPU run of config 5 (`phase_loop_configs`), waited for
+    once the card's phases beside it are done: eval.py's health checks and
+    the ATE bar, and the card's run against it over the CPU's frames,
+    reported (the comparisons config 2 is held to do not hold on this path:
+    see the note below CPU_RUN_THREADS). Its result goes into `loops`."""
+    cpu_run5, card_poses = cpu
+    c, _ = cpu_run5.result("config5_quick")
+    cpu_run5.stop()
+    health_checks(5, c)
+    if not c["ate"] <= CONFIG5_QUICK_ATE_MAX:
+        raise AssertionError(f"config 5 quick, CPU: ATE {c['ate']} m > {CONFIG5_QUICK_ATE_MAX} m")
+    quick = loops["a_quick_config5"]
     n = len(c["_poses"])
-    out["a_quick_config5"] = {
-        "frames_digest": digest, "ate_bar": CONFIG5_QUICK_ATE_MAX,
-        "jax_cpu_ate": JAX_QUICK_FRAMES_ATE[5],
-        "card": strip_poses(a), "cpu": strip_poses(c),
+    quick.update({
+        "cpu": strip_poses(c),
         "card_vs_cpu": {
             "cpu_frames": n,
-            "pose_gap_cpu_frames": loop_pose_gap(a["_poses"][:n], c["_poses"]),
-            "keyframes_equal_cpu_frames": [k for k in a["keyframes"] if k < n] == c["keyframes"]}}
-    return out
+            "pose_gap_cpu_frames": loop_pose_gap(card_poses[:n], c["_poses"]),
+            "keyframes_equal_cpu_frames":
+                [k for k in quick["card"]["keyframes"] if k < n] == c["keyframes"]}})
+    return quick
 
 
 def timed(fn):
@@ -2932,18 +3265,17 @@ def timed(fn):
 
 def phase_sequence_sharded(frames, poses, table) -> dict:
     """The bench's 96 frames (2048 points, 5 levels, track levels 3-0,
-    max_iters 10) over SEQ_SHARDS sequence shards: batched IC against the
+    max_iters 10) over SEQ_SHARDS sequence shards, batched IC against the
     unsharded `track_sequence_batched` (SHARDED_T_ATOL, inliers equal, ATE
-    within ATE_MAX), and the sequential chunks in FC against the JAX
-    package's CPU run of the same call; launches, ms and frames/s of each."""
+    within ATE_MAX); launches, ms and frames/s. The sequential chunks in FC
+    run in a process of their own beside phase 24 (`sharded_fc_check`)."""
     from uwslam_tpu_torch import bench
     from uwslam_tpu_torch.lie import se3
     from uwslam_tpu_torch.parallel import landmark_layout, track_sequence_sharded
     from uwslam_tpu_torch.tracking.sequence import track_sequence_batched
 
     cam, layout = bench.CAM, landmark_layout(SEQ_SHARDS)
-    kw = dict(mono_z=bench.MONO_Z, levels=bench.LEVELS, track_levels=bench.TRACK_LEVELS,
-              num_points=bench.NUM_POINTS, max_iters=SEQ_MAX_ITERS)
+    kw = sharded_kw()
     pairs = frames.shape[0] - 1
     (sharded, _), launches_b = counted(table, "sequence-sharded tracking (batched, IC)", lambda: timed(
         lambda: track_sequence_sharded(frames, cam, layout, mode="ic", **kw)))
@@ -2955,13 +3287,6 @@ def phase_sequence_sharded(frames, poses, table) -> dict:
     ate_b = bench.trajectory_ate(sharded[0], poses)
     if not ate_b <= ATE_MAX:
         raise AssertionError(f"sharded batched tracking: ATE {ate_b} m > {ATE_MAX} m")
-    (seq, s_s), launches_s = counted(
-        table, "sequence-sharded tracking (sequential, FC)", lambda: timed(
-            lambda: track_sequence_sharded(frames, cam, layout, mode="fc", batched=False, **kw)))
-    ate_s = bench.trajectory_ate(seq[0], poses)
-    bar = SHARDED_ATE_RATIO * JAX_SHARDED_FC_ATE
-    if not (ate_s <= bar and bool(torch.isfinite(seq[0]).all())):
-        raise AssertionError(f"sharded sequential tracking: ATE {ate_s} m > {bar} m")
     return {
         "shards": SEQ_SHARDS, "pairs": pairs,
         "batched_ic": {"launches": launches_b, "vs_unsharded_se3_log": gap,
@@ -2969,10 +3294,22 @@ def phase_sequence_sharded(frames, poses, table) -> dict:
                                         for a, b in zip(sharded, whole)),
                        "ate": ate_b, "chunk_ms": 1e3 * s_b, "frames_per_s": pairs / s_b,
                        "unsharded_chunk_ms": 1e3 * s_u},
-        "sequential_fc": {"launches": launches_s, "ate": ate_s, "ate_bar": bar,
-                          "jax_cpu_ate": JAX_SHARDED_FC_ATE, "s": s_s,
-                          "frames_per_s": pairs / s_s, "min_inliers": int(seq[1].min())},
     }
+
+
+def sharded_fc_check(seq: dict, poses) -> dict:
+    """Phase 21's sequential FC chunks (`_side_sharded_fc`) against the JAX
+    package's CPU run of the same call."""
+    from uwslam_tpu_torch import bench
+
+    ate = bench.trajectory_ate(seq["T"], poses.cpu())
+    bar = SHARDED_ATE_RATIO * JAX_SHARDED_FC_ATE
+    if not (ate <= bar and bool(torch.isfinite(seq["T"]).all())):
+        raise AssertionError(f"sharded sequential tracking: ATE {ate} m > {bar} m")
+    pairs = seq["T"].shape[0]
+    return {"launches": seq["launches"], "ate": ate, "ate_bar": bar,
+            "jax_cpu_ate": JAX_SHARDED_FC_ATE, "s": seq["s"], "frames_per_s": pairs / seq["s"],
+            "min_inliers": int(seq["inliers"].min())}
 
 
 def phase_photo_sharded() -> tuple[dict, dict]:
@@ -3078,10 +3415,12 @@ def phase_session(frames, poses, table) -> tuple[dict, dict, dict, dict]:
     `--viz-port 0` (exit 0; a `VizServer` on port 0 answers a GET with the
     SVG); then `entry()` on the card against the CPU's, every kernel against
     its plain version and timed at its shapes, and `dryrun_multichip(8)`.
+    The CPU's `--map-out` run and `entry()` go on in a process of their own
+    (`ProcessRuns`) beside the card's runs.
     -> (results, entry launches, entry parity errors, entry timings)."""
     import urllib.request
 
-    from uwslam_tpu_torch import bench, ops
+    from uwslam_tpu_torch import bench
     from uwslam_tpu_torch.entry import dryrun_multichip, entry
     from uwslam_tpu_torch.image.pyramid import build_pyramid_batched
     from uwslam_tpu_torch.lie import se3
@@ -3095,74 +3434,83 @@ def phase_session(frames, poses, table) -> tuple[dict, dict, dict, dict]:
         base = ["-d", str(rgb), "-c", str(calib), "--tum-gt", str(gt), "--levels", "3",
                 "--track-levels", "1,0", "--mono-depth", "2.0"]
         card = base + ["--platform", "cuda"]
-        t0 = time.perf_counter()
-        ate_whole, _, _ = cli_text(card + ["--trajectory-out", str(tmp / "whole.txt")],
-                                   "uninterrupted")
-        ck = tmp / "session"
-        _, _, err = cli_text(card + ["--max-frames", str(SESSION_SPLIT), "--checkpoint",
-                                     str(ck)], "--checkpoint")
-        if f"checkpoint -> {ck}" not in err:
-            raise AssertionError(f"--checkpoint: {err[-2000:]!r}")
-        ate_joined, _, err = cli_text(card + ["--resume", f"{ck}.npz", "--trajectory-out",
-                                              str(tmp / "joined.txt")], "--resume")
-        if f"resumed at frame {SESSION_SPLIT}" not in err:
-            raise AssertionError(f"--resume: {err[-2000:]!r}")
-        whole, joined = np.loadtxt(tmp / "whole.txt"), np.loadtxt(tmp / "joined.txt")
-        if joined.shape != whole.shape:
-            raise AssertionError(f"--resume: {joined.shape} rows against {whole.shape}")
-        first = float(np.abs(joined[:SESSION_SPLIT] - whole[:SESSION_SPLIT]).max())
-        bar = RESUME_ATE_RATIO * JAX_RESUME_ATE
-        if not (first <= SESSION_T_ATOL and ate_joined <= bar):
-            raise AssertionError(f"--resume: first rows {first}, ATE {ate_joined} m > {bar} m")
-        out["checkpoint_resume"] = {
-            "frames": len(whole), "split": SESSION_SPLIT, "ate_uninterrupted": ate_whole,
-            "ate_joined": ate_joined, "ate_bar": bar, "jax_cpu_ate_joined": JAX_RESUME_ATE,
-            "first_rows_max_diff": first, "s": round(time.perf_counter() - t0, 1)}
-
         short = base + ["--max-frames", str(SESSION_SHORT_FRAMES)]
-        counts = {}
-        for platform in ("cuda", "cpu"):
-            ply = tmp / f"map_{platform}.ply"
-            _, _, err = cli_text(short + ["--platform", platform, "--map-out", str(ply)],
-                                 f"--map-out on {platform}")
-            m = re.search(r"map: (\d+) points -> ", err)
-            head = ply.read_text().splitlines()[:3]
-            if m is None or head[2] != f"element vertex {m.group(1)}":
-                raise AssertionError(f"--map-out on {platform}: {err[-2000:]!r} {head}")
-            counts[platform] = int(m.group(1))
-        if not counts["cuda"] == counts["cpu"] > 100:
-            raise AssertionError(f"--map-out: {counts} vertices on the card and the CPU")
-        out["map_out"] = {"frames": SESSION_SHORT_FRAMES, "vertices": counts}
+        plys = {platform: tmp / f"map_{platform}.ply" for platform in ("cuda", "cpu")}
+        cpu = ProcessRuns(tmp / "cpu", "cpu", {"map_out": None, "entry": None}, {
+            "map_out": short + ["--platform", "cpu", "--map-out", str(plys["cpu"])]})
+        try:
+            t0 = time.perf_counter()
+            ate_whole, _, _ = cli_text(card + ["--trajectory-out", str(tmp / "whole.txt")],
+                                       "uninterrupted")
+            ck = tmp / "session"
+            _, _, err = cli_text(card + ["--max-frames", str(SESSION_SPLIT), "--checkpoint",
+                                         str(ck)], "--checkpoint")
+            if f"checkpoint -> {ck}" not in err:
+                raise AssertionError(f"--checkpoint: {err[-2000:]!r}")
+            ate_joined, _, err = cli_text(card + ["--resume", f"{ck}.npz", "--trajectory-out",
+                                                  str(tmp / "joined.txt")], "--resume")
+            if f"resumed at frame {SESSION_SPLIT}" not in err:
+                raise AssertionError(f"--resume: {err[-2000:]!r}")
+            whole, joined = np.loadtxt(tmp / "whole.txt"), np.loadtxt(tmp / "joined.txt")
+            if joined.shape != whole.shape:
+                raise AssertionError(f"--resume: {joined.shape} rows against {whole.shape}")
+            first = float(np.abs(joined[:SESSION_SPLIT] - whole[:SESSION_SPLIT]).max())
+            bar = RESUME_ATE_RATIO * JAX_RESUME_ATE
+            if not (first <= SESSION_T_ATOL and ate_joined <= bar):
+                raise AssertionError(f"--resume: first rows {first}, ATE {ate_joined} m > "
+                                     f"{bar} m")
+            out["checkpoint_resume"] = {
+                "frames": len(whole), "split": SESSION_SPLIT, "ate_uninterrupted": ate_whole,
+                "ate_joined": ate_joined, "ate_bar": bar, "jax_cpu_ate_joined": JAX_RESUME_ATE,
+                "first_rows_max_diff": first, "s": round(time.perf_counter() - t0, 1)}
 
-        for k in table:
-            k["wrapper"].launches = 0
-        cli_text(short + ["--platform", "cuda", "--trace", str(tmp / "trace")], "--trace")
-        traced = trace_kernels(tmp / "trace")
-        traced["launches_counted"] = {k["name"]: k["wrapper"].launches for k in table}
-        if not (traced["kernel_records"]["lm_evaluate"] and traced["kernel_records"]["pyramid"]):
-            raise AssertionError(f"--trace names neither lm_evaluate nor pyramid: {traced}")
-        out["trace"] = traced
+            errs = {"cuda": cli_text(short + ["--platform", "cuda", "--map-out",
+                                              str(plys["cuda"])], "--map-out on cuda")[2],
+                    "cpu": cpu.result("map_out")[0]}
+            counts = {}
+            for platform, err in errs.items():
+                m = re.search(r"map: (\d+) points -> ", err)
+                head = plys[platform].read_text().splitlines()[:3]
+                if m is None or head[2] != f"element vertex {m.group(1)}":
+                    raise AssertionError(f"--map-out on {platform}: {err[-2000:]!r} {head}")
+                counts[platform] = int(m.group(1))
+            if not counts["cuda"] == counts["cpu"] > 100:
+                raise AssertionError(f"--map-out: {counts} vertices on the card and the CPU")
+            out["map_out"] = {"frames": SESSION_SHORT_FRAMES, "vertices": counts}
 
-        _, _, err = cli_text(short + ["--platform", "cuda", "--viz-port", "0"], "--viz-port 0")
-        m = re.search(r"live view: http://127\.0\.0\.1:(\d+)", err)
-        if m is None or int(m.group(1)) == 0:
-            raise AssertionError(f"--viz-port 0: {err[-2000:]!r}")
-    server = VizServer(port=0)
-    try:
-        est = se3.inverse(poses.cpu())[:, :3, 3].numpy()
-        server.update(est, est)
-        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/", timeout=10) as r:
-            page = r.read().decode()
-    finally:
-        server.close()
-    if "<svg" not in page or "<polyline" not in page:
-        raise AssertionError("VizServer's page holds no trajectory SVG")
-    out["viz"] = {"cli_port": int(m.group(1)), "server_page_bytes": len(page)}
+            for k in table:
+                k["wrapper"].launches = 0
+            cli_text(short + ["--platform", "cuda", "--trace", str(tmp / "trace")], "--trace")
+            traced = trace_kernels(tmp / "trace")
+            traced["launches_counted"] = {k["name"]: k["wrapper"].launches for k in table}
+            if not (traced["kernel_records"]["lm_evaluate"]
+                    and traced["kernel_records"]["pyramid"]):
+                raise AssertionError(f"--trace names neither lm_evaluate nor pyramid: {traced}")
+            out["trace"] = traced
 
-    fn, args = entry()
-    T, launches = counted(table, "entry()", lambda: fn(*args))
-    fn_cpu, args_cpu = entry(device="cpu")
-    gap = float((se3.log(T.cpu()) - se3.log(fn_cpu(*args_cpu))).abs().max())
+            _, _, err = cli_text(short + ["--platform", "cuda", "--viz-port", "0"],
+                                 "--viz-port 0")
+            m = re.search(r"live view: http://127\.0\.0\.1:(\d+)", err)
+            if m is None or int(m.group(1)) == 0:
+                raise AssertionError(f"--viz-port 0: {err[-2000:]!r}")
+            server = VizServer(port=0)
+            try:
+                est = se3.inverse(poses.cpu())[:, :3, 3].numpy()
+                server.update(est, est)
+                with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/", timeout=10) as r:
+                    page = r.read().decode()
+            finally:
+                server.close()
+            if "<svg" not in page or "<polyline" not in page:
+                raise AssertionError("VizServer's page holds no trajectory SVG")
+            out["viz"] = {"cli_port": int(m.group(1)), "server_page_bytes": len(page)}
+
+            fn, args = entry()
+            T, launches = counted(table, "entry()", lambda: fn(*args))
+            T_cpu, _ = cpu.result("entry")
+        finally:
+            cpu.stop()
+    gap = float((se3.log(T.cpu()) - se3.log(T_cpu)).abs().max())
     if not (bool(torch.isfinite(T).all()) and gap <= ENTRY_T_ATOL):
         raise AssertionError(f"entry() on the card against the CPU: {gap}")
     dry, dry_s = timed(lambda: dryrun_multichip(8))
@@ -3174,7 +3522,7 @@ def phase_session(frames, poses, table) -> tuple[dict, dict, dict, dict]:
     pts = topk_gradient_points(pyr.images[0], pyr.grad_mag[0], cam, num_points=bench.NUM_POINTS,
                                grad_x=pyr.grad_x[0], grad_y=pyr.grad_y[0])
     errs = phase_parity(pyr, pts, cam, (3, 2, 1, 0), seed=1)
-    times = phase_timing(pyr, pts, cam, T[None].contiguous())
+    times = phase_timing(pyr, pts, cam, T[None].contiguous(), affine=False)
     # entry() builds each frame's pyramid alone: the pyramid kernel at B = 1.
     times.update(time_pairs(*pyramid_calls(args[0][None], 5)))
     return out, launches, errs, times
@@ -3201,10 +3549,117 @@ def health_key(message: str) -> str:
     return re.sub(r"\d+\.\d+(?:e[+-]?\d+)?", "#", message)
 
 
+# uw-slam's reference mode (configs 0, 8, 9): synchronous frames, no window
+# BA, so the same bits whatever runs beside them. Phase 24 runs each in a
+# process of its own while this one runs 1, 2, 3 and 10; config 4, whose
+# window solves land when the card has them done, runs after them, alone.
+SIDE_EVAL_CONFIGS = ((0,), (8,), (9,))
+LAST_EVAL_CONFIGS = (4,)
+
+
+def _side_config2_flat(inp):
+    dev = torch.device("cuda", 0)
+    system = front_end_system(dev)
+    drive(system, inp["scene"].to(dev))
+    return RunRecord.record(system)
+
+
+def _side_reference_mode(inp):
+    dev = torch.device("cuda", 0)
+    system = front_end_system(dev, reference=True, tracker=live_config().tracker)
+    drive(system, inp["plane"][:SCENE_FRAMES].to(dev))
+    # The last pair was tracked on patch points if its verified matches
+    # reached the front end's minimum (else the top-K selection stands in).
+    return {**RunRecord.record(system), "matches": int(system._last_matches[2].sum()),
+            "min_matches": system.config.features.min_matches}
+
+
+def _side_boot_graph_vs_eager(inp):
+    return phase_boot_graph_vs_eager(inp["scene"].to(torch.device("cuda", 0)))
+
+
+def _side_cli_front_end(inp):
+    return {name: run_cli(argv, name) for name, argv in inp["cli"].items()}
+
+
+def _side_config4_without(inp):
+    dev = torch.device("cuda", 0)
+    system = front_end_system(dev, tracker=live_config().tracker)
+    drive(system, inp["plane"].to(dev))
+    return RunRecord.record(system)
+
+
+def _side_live_rgbd(inp):
+    """Phase 10's live path with depth images, its launches counted."""
+    dev = torch.device("cuda", 0)
+    (system, states, _), launches = counted(
+        kernels_table(), "the live RGB-D path", lambda: run_live(
+            inp["frames"].to(dev), dev, depths=inp["depths"].to(dev), mono_depth=1.0))
+    return {**RunRecord.record(system), "graph_replays": system.graph_replays,
+            "launches": launches}
+
+
+def sharded_kw() -> dict:
+    """Phase 21's tracking arguments: the bench chunk at SEQ_MAX_ITERS."""
+    from uwslam_tpu_torch import bench
+
+    return dict(mono_z=bench.MONO_Z, levels=bench.LEVELS, track_levels=bench.TRACK_LEVELS,
+                num_points=bench.NUM_POINTS, max_iters=SEQ_MAX_ITERS)
+
+
+def _side_sharded_fc(inp):
+    """Phase 21's sequential FC chunks over SEQ_SHARDS sequence shards, its
+    launches counted."""
+    from uwslam_tpu_torch import bench
+    from uwslam_tpu_torch.parallel import landmark_layout, track_sequence_sharded
+
+    frames = inp["frames"].to(torch.device("cuda", 0))
+    (seq, s), launches = counted(
+        kernels_table(), "sequence-sharded tracking (sequential, FC)", lambda: timed(
+            lambda: track_sequence_sharded(frames, bench.CAM, landmark_layout(SEQ_SHARDS),
+                                           mode="fc", batched=False, **sharded_kw())))
+    return {"T": seq[0].cpu(), "inliers": seq[1].cpu(), "s": s, "launches": launches}
+
+
+# Runs on the card that a phase reads from a process of its own, each with
+# its bars held in the main process: phase 15's run at constant depth and
+# uw-slam's reference mode, phase 16a (beside phase 15), phase 17's run
+# without BA, phase 10's live path with depth images, phase 21's sequential
+# FC chunks (beside phase 24), each synchronous and without window BA (so the
+# same bits whatever runs beside them), and phase 18's CLI runs (beside
+# phase 15; their bars are 2 cm).
+SIDE_SYSTEMS = {"config2_flat": _side_config2_flat, "reference_mode": _side_reference_mode,
+                "boot_graph_vs_eager": _side_boot_graph_vs_eager,
+                "cli_front_end": _side_cli_front_end,
+                "config4_without": _side_config4_without, "live_rgbd": _side_live_rgbd,
+                "sharded_fc": _side_sharded_fc}
+
+
+def run_eval_configs(configs: dict, table, root: Path) -> dict:
+    """Phase 24's configs through the port's CLI on the card -> {config:
+    `run_cli_in_process`'s result}: each group of SIDE_EVAL_CONFIGS in a
+    process of its own beside the others in this one, LAST_EVAL_CONFIGS
+    after them."""
+    sides = [ProcessRuns(root / f"eval_side{i}", "eval", {c: configs[c]["args"] for c in group})
+             for i, group in enumerate(SIDE_EVAL_CONFIGS)]
+    beside = [c for c in EVAL_CONFIGS
+              if c not in sum(SIDE_EVAL_CONFIGS, ()) + LAST_EVAL_CONFIGS]
+    try:
+        runs = {c: run_cli_in_process(configs[c]["args"], table, f"config {c}") for c in beside}
+        for side, group in zip(sides, SIDE_EVAL_CONFIGS):
+            runs.update({c: side.result(c)[0] for c in group})
+    finally:
+        for side in sides:
+            side.stop()
+    runs.update({c: run_cli_in_process(configs[c]["args"], table, f"config {c}")
+                 for c in LAST_EVAL_CONFIGS})
+    return runs
+
+
 def phase_eval_configs(table) -> dict:
     """eval.py's configs 0-4 and 8-10 at full size on the card: the TUM and
     both EUROC sequences rendered on the card by `uwslam_tpu_torch.eval`,
-    each config through the port's CLI in this process with eval.py's flags.
+    each config through the port's CLI with eval.py's flags (`run_eval_configs`).
     The render must be the one the JAX figures were measured on (its
     digests). Per config: ATE within its bar, every frame tracked, fps, warm
     fps, window-BA iterations per second, the kernels' launches. eval.py's
@@ -3222,9 +3677,10 @@ def phase_eval_configs(table) -> dict:
         out["frames_digest"] = {name: check_digest(Path(tmp) / name, name)
                                 for name in EVAL_DATASETS[:3]}
         configs = ev.configs(tum, tum, mh01, v101, 0, 0)
+        runs = run_eval_configs(configs, table, Path(tmp))
         results, misses = {}, []
         for c in EVAL_CONFIGS:
-            r = run_cli_in_process(configs[c]["args"], table, f"config {c}")
+            r = runs[c]
             n = EVAL_TUM_FRAMES if c <= 2 else EVAL_EUROC_FRAMES
             if not (r.get("frames") == r.get("ate_poses") == n):
                 misses.append(f"config {c}: {r.get('frames')} frames tracked, "
@@ -3252,6 +3708,13 @@ def phase_eval_configs(table) -> dict:
         {"port": m, "jax_cpu": jax_keys[health_key(m)]} for m in failed
         if health_key(m) in jax_keys]}
     misses += [f"health check every JAX CLI run of these frames passes: {m}" for m in asserted]
+    # Configs 2 and 3 track with affine brightness (--affine, Huber): every LM
+    # evaluation after a level's first is one lm_evaluate launch.
+    out["affine_configs_launches"] = {
+        c: {n: out[f"config{c}"]["launches"][n] for n in ("warp_sample", "lm_evaluate")}
+        for c in AFFINE_CONFIGS}
+    misses += [f"config {c} (--affine) launched lm_evaluate 0 times" for c in AFFINE_CONFIGS
+               if not out["affine_configs_launches"][c]["lm_evaluate"]]
     if misses:
         raise AssertionError(f"phase 24: {json.dumps(out)}; missed: {misses}")
     total = {k["name"]: sum(out[f"config{c}"]["launches"][k["name"]] for c in EVAL_CONFIGS)
@@ -3424,7 +3887,9 @@ def phase_tools(frames, poses, table) -> dict:
     return out
 
 
-def main() -> None:
+def main(stack: contextlib.ExitStack) -> None:
+    """All phases; `stack` stops the processes and removes the directories
+    that outlive a phase, however the run ends."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card is visible; nothing was run")
     from uwslam_tpu_torch import bench
@@ -3437,7 +3902,7 @@ def main() -> None:
     say("1 device", f"{gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     path, build_s, log = _lib.build()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     say("2 build", f"{path.name} in {build_s:.2f} s; ptxas: {' | '.join(ptxas)}")
 
     table = kernels_table()
@@ -3474,6 +3939,22 @@ def main() -> None:
         f"idle share {1 - busy_ms / (chunk_s * 1e3):.3f}); per call: "
         + json.dumps(times) + f"; {gpu}; {time.perf_counter() - t0:.1f} s")
 
+    # The CPU comparison runs of phases 6-19 go on in a process of their own
+    # from here (`ProcessRuns`); the depth frames of phase 10, the scene of
+    # phases 15-16 and the photometric window of phase 19 are made for it.
+    from uwslam_tpu_torch.ba.photometric import PhotoBAProblem
+
+    noisy = with_noise_frame(frames)
+    depths = tum_depth(cam, poses)
+    scene, scene_poses = scene_sequence(dev)
+    window = photo_window(dev)
+    jobs_dir = Path(stack.enter_context(tempfile.TemporaryDirectory())) / "cpu_jobs"
+    worker = ProcessRuns(jobs_dir, "cpu", dict.fromkeys(WORKER_JOBS), {
+        "frames": frames.cpu(), "noisy": noisy.cpu(), "depths": depths.cpu(),
+        "scene": scene.cpu(),
+        "photo_window": (PhotoBAProblem(*(t.cpu() for t in window[0])), window[1])})
+    stack.callback(worker.stop)
+
     lcfg = live_config().tracker
     live_pyrs = [build_pyramid(frames[i], levels=lcfg.pyramid_levels) for i in (0, 1)]
     live_pts = topk_gradient_points(live_pyrs[0].images[0], live_pyrs[0].grad_mag[0], cam,
@@ -3484,17 +3965,22 @@ def main() -> None:
     torch.cuda.synchronize()
     say("3b parity (live shapes)", "max abs error vs plain: " + json.dumps(errs_live))
     errs_euroc, euroc_times = phase_euroc_pyramid(dev)
-    say("3c pyramid at the rectified EUROC shape", json.dumps(errs_euroc) + "; per call: "
+    say("3c the rectified EUROC shape", json.dumps(errs_euroc) + "; per call: "
         + json.dumps(euroc_times) + f"; {gpu}")
 
     t0 = time.perf_counter()
-    noisy = with_noise_frame(frames)
-    _, cpu_states, _ = run_live(noisy.cpu(), "cpu")
-    cpu_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    live, frame_ms = phase_live(frames, poses, table, cpu_states[:NOISE_FRAME])
+    cpu_states = []
+
+    def live_cpu_states():
+        states, s = worker.result("live_noisy")
+        cpu_states.extend(states)
+        live_cpu_states.s = s
+        return states[:NOISE_FRAME]
+
+    live, frame_ms = phase_live(frames, poses, table, live_cpu_states)
     say("6 live path", json.dumps(live) + f"; card run {time.perf_counter() - t0:.1f} s, "
-        f"CPU run of the {noisy.shape[0]} frames of phase 7 {cpu_s:.1f} s")
+        f"the CPU worker's run of the {noisy.shape[0]} frames of phase 7 "
+        f"{live_cpu_states.s:.1f} s")
     t0 = time.perf_counter()
     reloc = phase_reloc(noisy, poses, cpu_states)
     say("7 relocalization", json.dumps(reloc) + f"; {time.perf_counter() - t0:.1f} s")
@@ -3508,7 +3994,6 @@ def main() -> None:
                              f"live frame, not below {MAX_LAUNCHES_PER_FRAME}")
 
     t0 = time.perf_counter()
-    depths = tum_depth(cam, poses)
     depth_errs, depth_times = phase_depth_kernel(depths, pts)
     say("10 depth (kernel)", json.dumps(depth_errs) + "; per call: " + json.dumps(depth_times)
         + f"; {gpu}")
@@ -3521,15 +4006,15 @@ def main() -> None:
     del seq_pyrs
     say("10 depth (parity at track_sequence's shapes: B = 1, 5 levels, FC)",
         "max abs error vs plain: " + json.dumps(errs_seq))
-    depth_paths = phase_depth_paths(frames, poses, depths, table)
+    depth_paths = phase_depth_paths(frames, poses, depths, table, worker)
     say("10 depth (paths)", json.dumps(depth_paths) + f"; {time.perf_counter() - t0:.1f} s")
     del depths
 
     t0 = time.perf_counter()
     say("11a graph vs eager", json.dumps(phase_graph_vs_eager(frames)))
-    pipelined, pipe_ms = phase_pipelined(frames, poses, table, live["ate"])
+    pipelined, pipe_ms = phase_pipelined(frames, poses, table, live["ate"], worker)
     say("11b pipelined loop", json.dumps(pipelined))
-    say("11c pipelined relocalization", json.dumps(phase_pipelined_reloc(noisy, poses)))
+    say("11c pipelined relocalization", json.dumps(phase_pipelined_reloc(noisy, poses, worker)))
     pipe_times = phase_pipelined_timing(frames, pipe_ms, live_times, table)
     say("11d pipelined timing", json.dumps(pipe_times) + f"; {gpu}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3545,41 +4030,64 @@ def main() -> None:
     say("14 K3 at the depth-refinement shape", json.dumps(refine_errs) + "; per call: "
         + json.dumps(refine_times) + f"; {gpu}; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    scene, scene_poses = scene_sequence(dev)
-    config2, boot_system = phase_config2(scene, scene_poses, frames, poses, table)
+    # Phase 18's CLI runs in a process of their own beside phases 15-16a.
+    cli_dir = Path(stack.enter_context(tempfile.TemporaryDirectory()))
+    cli_runs = ProcessRuns(cli_dir / "runs", "system", {"cli_front_end": None},
+                           {"cli": cli_front_end_argv(frames, poses, cli_dir)})
+    stack.callback(cli_runs.stop)
+    config2, boot_system = phase_config2(scene, scene_poses, frames, poses, table, worker)
+    boot_vs_eager = config2.pop("boot_graph_vs_eager")
     say("15 config 2 (synchronous)", json.dumps(config2) + f"; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    say("16a bootstrap graph vs eager", json.dumps(phase_boot_graph_vs_eager(scene)))
+    say("16a bootstrap graph vs eager (beside phase 15)", json.dumps(boot_vs_eager))
+    cli_front_end = cli_front_end_check(cli_runs.result("cli_front_end")[0])
+    cli_runs.stop()
+    say("18 cli (configs 2 and 4, --photo-ba; beside phases 15-16a)", json.dumps(cli_front_end))
     config2_pipe = phase_config2_pipelined(scene, scene_poses, table, boot_system)
     say("16b config 2 (pipelined)", json.dumps(config2_pipe) + f"; {gpu}; "
         f"{time.perf_counter() - t0:.1f} s")
     del scene, boot_system
     t0 = time.perf_counter()
-    config4 = phase_config4(frames, poses, table, pipe_ms)
+    config4 = phase_config4(frames, poses, table, pipe_ms, worker)
     say("17 config 4 (window BA)", json.dumps(config4) + f"; {gpu}; "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    say("18 cli (configs 2 and 4, --photo-ba)", json.dumps(phase_cli_front_end(frames, poses))
-        + f"; {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    photo, photo_times = phase_photo_ba(frames, poses, table)
+    photo, photo_times = phase_photo_ba(frames, poses, table, window, worker)
+    worker.stop()
     say("19 photometric window BA", json.dumps(photo) + "; per call: " + json.dumps(photo_times)
         + f"; {gpu}; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    loops = phase_loop_configs(table)
-    say("20 configs 5-7 (loop closure, global BA)", json.dumps(loops) + f"; {gpu}; "
-        f"{time.perf_counter() - t0:.1f} s")
-    sharded = phase_sequence_sharded(frames, poses, table)
-    say("21 sequence-sharded tracking", json.dumps(sharded) + f"; {gpu}")
-    photo_sharded, photo_shard_times = phase_photo_sharded()
-    say("22 observer-sharded photometric BA", json.dumps(photo_sharded) + "; per call: "
-        + json.dumps(photo_shard_times) + f"; {gpu}")
-    session, entry_launches, entry_errs, entry_times = phase_session(frames, poses, table)
-    say("23 session tooling and the entry", json.dumps(session) + "; entry() launches: "
-        + json.dumps(entry_launches) + "; parity at entry()'s shapes: " + json.dumps(entry_errs)
-        + "; per call at entry()'s shapes: " + json.dumps(entry_times) + f"; {gpu}")
+    with tempfile.TemporaryDirectory() as loop_tmp:
+        loops, cpu_config5_run = phase_loop_configs(table, Path(loop_tmp))
+        try:
+            say("20 configs 5-7 (loop closure, global BA)", json.dumps(loops)
+                + f"; {gpu}; {time.perf_counter() - t0:.1f} s")
+            # Phases 21-23 on the card while the CPU's run of config 5 goes on.
+            sharded = phase_sequence_sharded(frames, poses, table)
+            say("21 sequence-sharded tracking (batched IC)", json.dumps(sharded) + f"; {gpu}")
+            photo_sharded, photo_shard_times = phase_photo_sharded()
+            say("22 observer-sharded photometric BA", json.dumps(photo_sharded) + "; per call: "
+                + json.dumps(photo_shard_times) + f"; {gpu}")
+            session, entry_launches, entry_errs, entry_times = phase_session(frames, poses,
+                                                                             table)
+            say("23 session tooling and the entry", json.dumps(session) + "; entry() launches: "
+                + json.dumps(entry_launches) + "; parity at entry()'s shapes: "
+                + json.dumps(entry_errs) + "; per call at entry()'s shapes: "
+                + json.dumps(entry_times) + f"; {gpu}")
+            say("20 (the CPU's run of config 5, beside phases 20-23)",
+                json.dumps(phase_loop_cpu(loops, cpu_config5_run)))
+        finally:
+            cpu_config5_run[0].stop()
+    # Phase 21's sequential FC chunks in a process of their own beside phase 24.
+    sharded_fc = ProcessRuns(Path(stack.enter_context(tempfile.TemporaryDirectory())) / "fc",
+                             "system", {"sharded_fc": None}, {"frames": frames.cpu()})
+    stack.callback(sharded_fc.stop)
     evaluated = phase_eval_configs(table)
     say("24 eval.py's configs 0-4 and 8-10 (full size)", json.dumps(evaluated) + f"; {gpu}")
+    sharded["sequential_fc"] = sharded_fc_check(sharded_fc.result("sharded_fc")[0], poses)
+    sharded_fc.stop()
+    say("21 sequence-sharded tracking (sequential FC, beside phase 24)",
+        json.dumps(sharded["sequential_fc"]) + f"; {gpu}")
     tools = phase_tools_fresh()
     say("25 measuring tools", json.dumps(tools) + f"; {gpu}")
 
@@ -3624,10 +4132,17 @@ def main() -> None:
         for k in table
     ]
     for k in kernels:
-        if k["name"] in euroc_times:           # the pyramid and K1 alone at 1 x 480 x 736
+        if k["name"] in euroc_times:   # the pyramid, K1 alone and lm_evaluate at 1 x 480 x 736
             t = euroc_times[k["name"]]
             k.update({"ms_euroc": t["device_ms"], "plain_ms_euroc": t["plain_device_ms"],
                       "bound_ms_euroc": t["bound_ms"], "library_ms_euroc": t["library_ms"]})
+    # lm_evaluate with affine brightness (configs 2 and 3): IC at the offline
+    # shape, FC at the live and the rectified EUROC shapes.
+    lm = next(k for k in kernels if k["name"] == "lm_evaluate")
+    for shape, t in (("affine", times), ("live_affine", live_k), ("euroc_affine", euroc_times)):
+        t = t["lm_evaluate_affine"]
+        lm.update({f"ms_{shape}": t["device_ms"], f"plain_ms_{shape}": t["plain_device_ms"],
+                   f"bound_ms_{shape}": t["bound_ms"], f"library_ms_{shape}": t["library_ms"]})
     sampler = next(k for k in kernels if k["name"] == "bilinear_sample")
     sampler["max_abs_err"] = max(sampler["max_abs_err"], depth_errs["live"],
                                  depth_errs["offline"])
@@ -3670,9 +4185,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cpu-config5"]:
-        cpu_config5(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--runs"]:
+        runs_process(sys.argv[2])
     elif sys.argv[1:2] == ["--tools"]:
         tools_process(sys.argv[2])
     else:
-        main()
+        with contextlib.ExitStack() as exit_stack:
+            main(exit_stack)

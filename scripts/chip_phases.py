@@ -1,6 +1,7 @@
 """Some phases of `chip_smoke.py` alone. Phases 21, 22, 23, 15 and 17 run
 beside the port's CPU run of config 5 over the quick sequence (phase 20's,
-which loads the host while they run); phase 20 (configs 5-7, with that CPU
+which loads the host while they run; 15 and 17 read their own CPU runs from
+a `chip_smoke.ProcessRuns`); phase 20 (configs 5-7, with that CPU
 run of its own), phase 24 (eval.py's configs 0-4 and 8-10 at full size) and
 phase 25 (the measuring tools: offline budget, attribution, scaling curve)
 run after them, alone. `frames DIR [NAME ...]` renders those phases' data
@@ -48,8 +49,7 @@ def beside_cpu_run(which, table, dev) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         quick = cs.write_tum_sequence(Path(tmp) / "quick", cs.QUICK_FRAMES, cs.QUICK_LOOP_PERIOD,
                                       dev)
-        cpu_out = Path(tmp) / "cpu_config5"
-        proc = cs.start_cpu_config5(quick, cpu_out)
+        cpu_run5 = cs.start_cpu_config5(Path(tmp) / "cpu_config5", quick)
         try:
             if "21" in which:
                 cs.say("21", json.dumps(cs.phase_sequence_sharded(frames, poses, table)))
@@ -57,16 +57,24 @@ def beside_cpu_run(which, table, dev) -> None:
                 cs.say("22", " ".join(json.dumps(x) for x in cs.phase_photo_sharded()))
             if "23" in which:
                 cs.say("23", " ".join(json.dumps(x) for x in cs.phase_session(frames, poses, table)))
-            if "15" in which:
-                scene, scene_poses = cs.scene_sequence(dev)
-                cs.say("15", json.dumps(cs.phase_config2(scene, scene_poses, frames, poses,
-                                                         table)[0]))
-            if "17" in which:
-                # Phase 17 reports the pipelined frame times beside those of a
-                # run without BA, which only phase 11 measures: a stand-in.
-                cs.say("17", json.dumps(cs.phase_config4(frames, poses, table, [11.5] * 96)))
+            scene, scene_poses = cs.scene_sequence(dev)
+            jobs = {j: None for p, j in (("15", "config2"), ("17", "config4")) if p in which}
+            worker = cs.ProcessRuns(Path(tmp) / "cpu_jobs", "cpu", jobs,
+                                    {"frames": frames.cpu(), "scene": scene.cpu()})
+            try:
+                if "15" in which:
+                    cs.say("15", json.dumps(cs.phase_config2(scene, scene_poses, frames, poses,
+                                                             table, worker)[0]))
+                if "17" in which:
+                    # Phase 17 reports the pipelined frame times beside those of a
+                    # run without BA, which only phase 11 measures: a stand-in.
+                    cs.say("17", json.dumps(cs.phase_config4(frames, poses, table, [11.5] * 96,
+                                                             worker)))
+            finally:
+                worker.stop()
+            c, _ = cpu_run5.result("config5_quick")
         finally:
-            c = cs.finish_cpu_config5(proc, cpu_out)
+            cpu_run5.stop()
         c.pop("_poses")
         cs.say("20 CPU run of config 5", json.dumps(c))
         cs.health_checks(5, c)
@@ -98,7 +106,13 @@ def main(which) -> None:
     if set(which) & set(BESIDE_CPU_RUN):
         beside_cpu_run(which, table, dev)
     if "20" in which:
-        cs.say("20", json.dumps(cs.phase_loop_configs(table), default=str))
+        with tempfile.TemporaryDirectory() as tmp:
+            loops, cpu = cs.phase_loop_configs(table, Path(tmp))
+            try:
+                cs.phase_loop_cpu(loops, cpu)
+            finally:
+                cpu[0].stop()
+        cs.say("20", json.dumps(loops, default=str))
     if "24" in which:
         cs.say("24", json.dumps(cs.phase_eval_configs(table), default=str))
     if "25" in which:

@@ -61,7 +61,7 @@ def main() -> None:
                              WeightKind.HUBER, J_ref=J_ref)
 
         def shaped(threads: int, blocks: int):
-            args = (*ev._head, T.data_ptr(), *ev._tail[:-2], threads, blocks,
+            args = (*ev._head, T.data_ptr(), 0, *ev._tail[:-2], threads, blocks,   # 0: no (a, b)
                     torch.cuda.current_stream().cuda_stream)
 
             def call():

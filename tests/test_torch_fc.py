@@ -1,7 +1,9 @@
 """Parity of the port's forward-compositional tracking and affine brightness
 (`residuals_and_jacobian`, `lm_level`, `lm_level_ic(affine=True)`, `track`
 and `track_sequence_batched` with mode="fc") with the JAX package's CPU
-branch, on the same numpy inputs.
+branch, on the same numpy inputs. Affine levels with Huber weights or none
+run the fused evaluation (`lm_evaluate`'s plain version on the CPU), Tukey
+levels K2 and plain operations.
 
 Tolerances: residuals and Jacobians rtol 1e-5 / atol 1e-4 with equal masks
 (the warped points and the Jacobian's f32 products are rounded in another
@@ -212,6 +214,62 @@ def test_lm_level_ic_affine_matches_jax(pairs):
     np.testing.assert_allclose(got.J.numpy(), np.asarray(want.J_best), rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(got.n_inlier.numpy(), np.asarray(want.n_inlier))
     np.testing.assert_allclose(got.ab.numpy(), np.asarray(want.ab), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["huber", "none"])
+def test_lm_level_ic_affine_from_a_brightness_matches_jax(pairs, kind):
+    """The fused IC level with affine brightness from a non-zero (a, b) and a
+    pose off the identity, against JAX `lm_level_ic(affine=True)`."""
+    ref_pyr, tgt_pyr, ref_pts = pairs
+    lvl = 1
+    uv = ref_pts.uv * (1.0 / (1 << lvl))
+    samp = jax.vmap(jax_sample)
+    gx, _ = samp(ref_pyr.grad_x[lvl], uv)
+    gy, _ = samp(ref_pyr.grad_y[lvl], uv)
+    pts_l = _level_points(ref_pyr, ref_pts, lvl)
+    T0 = np.asarray(jse3.exp(jnp.asarray(np.full((4, 6), 0.002), jnp.float32)))
+    ab0 = np.tile(np.asarray([[0.01, -2.0]], np.float32), (4, 1))
+    want = jax.vmap(lambda T_, p, x, y, im, ab: jphoto.lm_level_ic(
+        T_, p, p.intensity, x, y, im, JCAM.scaled(lvl), max_iters=8,
+        weight_kind=JaxWeightKind(kind), affine=True, ab0=ab,
+    ))(T0, pts_l, gx, gy, tgt_pyr.images[lvl], ab0)
+    got = photometric.lm_level_ic(
+        _t(T0), points_from_numpy(pts_l), _t(pts_l.intensity), _t(gx), _t(gy),
+        _t(tgt_pyr.images[lvl]), CAM.scaled(lvl), max_iters=8,
+        weight_kind=WeightKind(kind), affine=True, ab0=_t(ab0),
+    )
+    np.testing.assert_allclose(got.T[:3].numpy(), np.asarray(want.T)[:3], atol=1e-5)
+    np.testing.assert_allclose(got.error.numpy(), np.asarray(want.error), rtol=1e-3)
+    np.testing.assert_array_equal(got.n_inlier.numpy(), np.asarray(want.n_inlier))
+    np.testing.assert_allclose(got.ab.numpy(), np.asarray(want.ab), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["fc", "ic"])
+@pytest.mark.parametrize("kind,fused", [("huber", True), ("none", True), ("tukey", False)])
+def test_affine_levels_take_the_fused_evaluation_except_tukey(pairs, monkeypatch, mode,
+                                                              kind, fused):
+    """An affine level with Huber weights or none builds an affine
+    `LMEvaluator` (one `lm_evaluate` launch per evaluation on the card); with
+    Tukey weights it builds none and runs K2 and plain operations."""
+    made = []
+
+    class Spy(photometric.LMEvaluator):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(photometric, "LMEvaluator", Spy)
+    ref_pyr, tgt_pyr, ref_pts = pairs
+    out = photometric.track(
+        pyramid_from_numpy(ref_pyr), pyramid_from_numpy(tgt_pyr), points_from_numpy(ref_pts),
+        CAM, levels=(2, 1), max_iters=(3, 2), weight_kind=WeightKind(kind), mode=mode,
+        affine=True,
+    )
+    assert out.affine.shape == (4, 2) and bool(out.affine.abs().sum() > 0)
+    if fused:
+        assert len(made) == 2 and all(e.affine and e.layout.n == 8 for e in made)
+    else:
+        assert not made
 
 
 @pytest.mark.parametrize("batch", [1, 3])

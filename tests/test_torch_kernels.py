@@ -66,6 +66,7 @@ def _cases():
     J_ref = torch.randn(2, 300, 6, generator=g) * valid[..., None]
     sigma = torch.tensor([0.5, 30.0])
     lm = (ref_int, valid, sigma)
+    ab = torch.tensor([[0.05, -3.0], [-0.02, 7.5]])
     return {
         "scharr": (ops.scharr_gradients_batched, ops.scharr_plain, (imgs,), {}),
         "warp_sample": (ops.warp_and_sample, ops.warp_and_sample_plain,
@@ -85,6 +86,12 @@ def _cases():
                            {"cam": CAM, "kind": WeightKind.HUBER, "J_ref": J_ref}),
         "lm_evaluate_fc": (ops.lm_evaluate, ops.lm_evaluate_plain, (texels, p3d, T, *lm),
                            {"cam": CAM, "kind": WeightKind.NONE}),
+        "lm_evaluate_ic_affine": (ops.lm_evaluate, ops.lm_evaluate_plain,
+                                  (stack[:, 0].contiguous(), p3d, T, *lm),
+                                  {"cam": CAM, "kind": WeightKind.NONE, "J_ref": J_ref, "ab": ab}),
+        "lm_evaluate_fc_affine": (ops.lm_evaluate, ops.lm_evaluate_plain,
+                                  (texels, p3d, T, *lm),
+                                  {"cam": CAM, "kind": WeightKind.HUBER, "ab": ab}),
     }
 
 
@@ -92,9 +99,10 @@ def _cases():
 CASES = ["scharr", "warp_sample", "warp_sample_c3", "bilinear_sample",
          "warp_sample_texels", "bilinear_sample_texels"]
 LM_CASES = ["lm_evaluate_ic", "lm_evaluate_fc"]
+AFFINE_LM_CASES = ["lm_evaluate_ic_affine", "lm_evaluate_fc_affine"]
 
 
-@pytest.mark.parametrize("case", CASES + LM_CASES)
+@pytest.mark.parametrize("case", CASES + LM_CASES + AFFINE_LM_CASES)
 def test_wrapper_runs_plain_version_on_cpu_tensors(case):
     wrapper, plain, args, kw = _cases()[case]
     before = wrapper.launches
@@ -104,7 +112,7 @@ def test_wrapper_runs_plain_version_on_cpu_tensors(case):
     assert wrapper.launches == before   # nothing was launched
 
 
-@pytest.mark.parametrize("case", CASES + LM_CASES)
+@pytest.mark.parametrize("case", CASES + LM_CASES + AFFINE_LM_CASES)
 def test_wrapper_refuses_other_devices(case):
     wrapper, _, args, kw = _cases()[case]
     with pytest.raises(ValueError):
@@ -158,6 +166,68 @@ def test_lm_evaluate_matches_plain_version_on_card(case, cuda_device):
     b_scale = torch.sqrt(2.0 * h_scale * want[:, 42:43])
     for sl, scale in ((slice(0, 36), h_scale), (slice(36, 42), b_scale),
                       (slice(42, 44), want[:, 42:44].abs())):
+        assert bool(((got[:, sl] - want[:, sl]).abs() <= 2e-5 * scale).all())
+
+
+def test_affine_evaluator_takes_the_brightness_exactly_when_affine():
+    _, _, (target, p3d, T, ref_int, valid, sigma), kw = _cases()["lm_evaluate_ic_affine"]
+    args = dict(target=target, p3d=p3d, ref_intensity=ref_int, pts_valid=valid, sigma=sigma,
+                cam=CAM, kind=WeightKind.HUBER, J_ref=kw["J_ref"])
+    affine = ops.LMEvaluator(**args, affine=True)
+    assert affine(T, kw["ab"]).shape == (2, 80) and affine.layout.n == 8
+    with pytest.raises(ValueError):
+        affine(T)
+    with pytest.raises(ValueError):
+        ops.LMEvaluator(**args)(T, kw["ab"])
+
+
+def _affine_lm_case(B, fc, device, N=2048, H=60, W=80):
+    """B pairs of random targets (texels in FC), points in front of and
+    behind the camera, 10% invalid, random poses near identity, Huber scale
+    and a non-zero brightness (a, b), all from one seed."""
+    g = torch.Generator().manual_seed(11 + B)
+    cam = PinholeCamera(fx=70.0, fy=70.0, cx=39.5, cy=29.5, width=W, height=H)
+    imgs = torch.rand(B, 3, H, W, generator=g) * 255.0
+    p3d = torch.rand(B, N, 3, generator=g) * torch.tensor([1.6, 1.2, 2.0]) + torch.tensor(
+        [-0.8, -0.6, 0.9])
+    p3d[:, :4, 2] = torch.tensor([-1.0, 0.0, 5e-4, 1e-3])
+    T = se3.exp(torch.randn(B, 6, generator=g) * 0.02)
+    ref_int = torch.rand(B, N, generator=g) * 255.0
+    valid = torch.rand(B, N, generator=g) > 0.1
+    sigma = torch.rand(B, generator=g) * 20.0
+    ab = torch.stack([torch.randn(B, generator=g) * 0.05, torch.randn(B, generator=g) * 5.0], -1)
+    if fc:
+        target, J_ref = ops.pack_texels(imgs[:, 0], imgs[:, 1], imgs[:, 2]), None
+    else:
+        target, J_ref = imgs[:, 0].contiguous(), torch.randn(B, N, 6, generator=g) * valid[..., None]
+    to = lambda x: None if x is None else x.to(device)   # noqa: E731
+    return (to(target), to(p3d), to(T), to(ref_int), to(valid), to(sigma), cam,
+            WeightKind.HUBER, to(J_ref), to(ab))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fc", [False, True], ids=["ic", "fc"])
+@pytest.mark.parametrize("B", [1, 95])
+def test_lm_evaluate_affine_matches_plain_version_on_card(B, fc, cuda_device):
+    target, p3d, T, ref_int, valid, sigma, cam, kind, J_ref, ab = _affine_lm_case(
+        B, fc, cuda_device)
+    lay = ops.cuda_track.LM_AFFINE
+    evaluator = ops.LMEvaluator(target, p3d, ref_int, valid, sigma, cam, kind, J_ref,
+                                affine=True)
+    before = ops.lm_evaluate.launches
+    got, again = evaluator(T, ab).clone(), evaluator(T, ab)
+    want = ops.lm_evaluate_plain(target, p3d, T, ref_int, valid, sigma, cam, kind, J_ref, ab)
+    torch.cuda.synchronize()
+    assert ops.lm_evaluate.launches == before + 2 and got.shape == (B, lay.width)
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, lay.count], want[:, lay.count])
+    assert float(want[:, lay.count].min()) > 0
+    H = got[:, lay.H].view(-1, 8, 8)
+    assert torch.equal(H, H.transpose(1, 2)) and not got[:, lay.count + 1:].any()
+    h_scale = want[:, lay.H].abs().amax(-1, keepdim=True)
+    b_scale = torch.sqrt(2.0 * h_scale * want[:, lay.cost, None])
+    tail = slice(lay.cost, lay.abs_r + 1)
+    for sl, scale in ((lay.H, h_scale), (lay.b, b_scale), (tail, want[:, tail].abs())):
         assert bool(((got[:, sl] - want[:, sl]).abs() <= 2e-5 * scale).all())
 
 

@@ -7,6 +7,10 @@ the same sums assembled from the JAX package's CPU branch:
 pairs include an all-invalid one, points behind and at the camera, and
 points that project exactly onto the last column and row.
 
+With affine brightness (a, b) (non-zero, from a numpy seed) the JAX side
+adds its `_affine_residual` and `_affine_columns` to those terms, and the
+port's 80-float form is held to the 8 x 8 sums the same way.
+
 Tolerances: the valid count exactly; every sum to rtol 2e-5 of the pair's
 scale for it (H: its largest entry; b: sqrt(max H * 2 cost), its
 Cauchy-Schwarz bound; cost and sum |r|: themselves), since both sides sum a
@@ -83,8 +87,9 @@ def scene():
     sigma = np.array([0.3, 7.5, 4.0, 12.0], np.float32)   # 0.3 is clamped at 1
     ref_gx = rng.normal(0, 15.0, (B, N)).astype(np.float32)
     ref_gy = rng.normal(0, 15.0, (B, N)).astype(np.float32)
+    ab = np.stack([rng.normal(0, 0.05, B), rng.normal(0, 4.0, B)], -1).astype(np.float32)
     return dict(imgs=imgs, gx=gx, gy=gy, p3d=p3d, T=T, ref_int=ref_int, valid=valid,
-                sigma=sigma, ref_gx=ref_gx, ref_gy=ref_gy)
+                sigma=sigma, ref_gx=ref_gx, ref_gy=ref_gy, ab=ab)
 
 
 def _ic_jacobian(s):
@@ -110,10 +115,13 @@ def _jax_terms(s, mode):
     return r, J, valid
 
 
-def _jax_sums(s, mode, kind):
-    """The 45 sums of each pair from the JAX package's per-point terms,
-    weights and cost, summed in float64."""
+def _jax_sums(s, mode, kind, affine=False):
+    """The 45 sums of each pair (75 with affine brightness) from the JAX
+    package's per-point terms, weights and cost, summed in float64."""
     r, J, valid = _jax_terms(s, mode)
+    if affine:
+        r = jax.vmap(jphoto._affine_residual)(r, s["ref_int"], s["ab"], valid)
+        J = jnp.concatenate([J, jax.vmap(jphoto._affine_columns)(s["ref_int"], valid)], -1)
     jkind = jrobust.WeightKind(kind)
     w = jax.vmap(lambda r_, v_, s_: jrobust.weights(r_, v_, jkind, sigma=s_))(
         r, valid, s["sigma"])
@@ -125,10 +133,10 @@ def _jax_sums(s, mode, kind):
     b = -np.einsum("bni,bn,bn->bi", J, w, r)
     cost_sum = np.asarray(cost, np.float64) * np.maximum(count, 1)
     tail = np.stack([cost_sum, np.abs(r).sum(-1), count], -1)
-    return np.concatenate([H.reshape(B, 36), b, tail], -1), np.asarray(valid, bool)
+    return np.concatenate([H.reshape(B, -1), b, tail], -1), np.asarray(valid, bool)
 
 
-def _port_sums(s, mode, kind):
+def _port_sums(s, mode, kind, affine=False):
     if mode == "fc":
         target = ops.pack_texels(_t(s["imgs"]), _t(s["gx"]), _t(s["gy"]))
         J_ref = None
@@ -138,20 +146,20 @@ def _port_sums(s, mode, kind):
     before = ops.lm_evaluate.launches
     out = ops.lm_evaluate(target, _t(s["p3d"]), _t(s["T"]), _t(s["ref_int"]),
                           _t(s["valid"]), _t(s["sigma"]), CAM, WeightKind(kind),
-                          J_ref=J_ref)
+                          J_ref=J_ref, ab=_t(s["ab"]) if affine else None)
     assert ops.lm_evaluate.launches == before   # a CPU tensor launches nothing
     return out.numpy()
 
 
-def assert_sums_close(got, want, rtol=SUM_RTOL):
+def assert_sums_close(got, want, rtol=SUM_RTOL, lay=cuda_track.LM_POSE):
     """Pair by pair: counts equal, every other sum within rtol of its scale."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    np.testing.assert_array_equal(got[:, cuda_track.LM_COUNT], want[:, cuda_track.LM_COUNT])
-    h_scale = np.abs(want[:, cuda_track.LM_H]).max(-1, keepdims=True)
-    cost = want[:, cuda_track.LM_COST, None]
+    np.testing.assert_array_equal(got[:, lay.count], want[:, lay.count])
+    h_scale = np.abs(want[:, lay.H]).max(-1, keepdims=True)
+    cost = want[:, lay.cost, None]
     b_scale = np.sqrt(2.0 * h_scale * cost)
-    for sl, scale in ((cuda_track.LM_H, h_scale), (cuda_track.LM_B, b_scale),
-                      (slice(42, 44), np.abs(want[:, 42:44]))):
+    tail = slice(lay.cost, lay.abs_r + 1)
+    for sl, scale in ((lay.H, h_scale), (lay.b, b_scale), (tail, np.abs(want[:, tail]))):
         err = np.abs(got[:, sl] - want[:, sl])
         assert (err <= rtol * scale).all(), (sl, float((err / np.maximum(scale, 1e-30)).max()))
 
@@ -161,11 +169,27 @@ def assert_sums_close(got, want, rtol=SUM_RTOL):
 def test_lm_evaluate_plain_matches_jax_sums(scene, mode, kind):
     want, valid = _jax_sums(scene, mode, kind)
     got = _port_sums(scene, mode, kind)
-    assert got.shape == (B, cuda_track.LM_WIDTH) and got.dtype == np.float32
+    assert got.shape == (B, cuda_track.LM_POSE.width) and got.dtype == np.float32
     assert valid[0, :17].all() and not valid[0, 17:21].any()   # edges in, behind out
-    assert want[2, cuda_track.LM_COUNT] == 0 and not got[2].any()   # the empty pair
+    assert want[2, cuda_track.LM_POSE.count] == 0 and not got[2].any()   # the empty pair
     assert_sums_close(got[:, :45], want)
     assert not got[:, 45:].any()
+
+
+@pytest.mark.parametrize("kind", ["huber", "none"])
+@pytest.mark.parametrize("mode", ["ic", "fc"])
+def test_lm_evaluate_plain_affine_matches_jax_sums(scene, mode, kind):
+    lay = cuda_track.LM_AFFINE
+    want, valid = _jax_sums(scene, mode, kind, affine=True)
+    got = _port_sums(scene, mode, kind, affine=True)
+    assert got.shape == (B, lay.width) and got.dtype == np.float32
+    assert want.shape == (B, lay.count + 1)
+    assert want[2, lay.count] == 0 and not got[2].any()   # the empty pair
+    assert_sums_close(got[:, :lay.count + 1], want, lay=lay)
+    assert not got[:, lay.count + 1:].any()
+    # The brightness moves the residual, so the affine sums are not the pose's.
+    pose = _port_sums(scene, mode, kind)
+    assert not np.allclose(got[:, lay.cost], pose[:, cuda_track.LM_POSE.cost])
 
 
 def test_lm_evaluate_sigma_is_clamped_at_one(scene):

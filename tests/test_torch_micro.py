@@ -11,10 +11,12 @@ from uwslam_tpu_torch import micro  # noqa: E402
 
 OPS = ("pyramid5_k1", "live_pyramid3", "roi_pyramid5", "scharr_l0", "sample_c3", "sample_c1",
        "normal_eq_6x6", "solve_6x6", "topk_points", "se3_exp_compose_inv", "lm_evaluate",
+       "lm_evaluate_affine",
        # K1 on the offline pyramid's levels 1-4, the kernels at the rectified EUROC shapes
        "scharr_l1", "scharr_l2", "scharr_l3", "scharr_l4",
        "euroc_pyramid5", "euroc_scharr_l0", "euroc_scharr_l1", "euroc_scharr_l2", "euroc_scharr_l3",
-       "euroc_scharr_l4", "euroc_warp_texels_c3", "euroc_sample_texels_c3", "euroc_lm_evaluate")
+       "euroc_scharr_l4", "euroc_warp_texels_c3", "euroc_sample_texels_c3", "euroc_lm_evaluate",
+       "euroc_lm_evaluate_affine")
 
 
 def test_every_op_runs_once_on_the_cpu(capsys):

@@ -1,7 +1,7 @@
 """Per-operation micro benchmark of the port on one card: device time beside
 the card's bound.
 
-    python -m uwslam_tpu_torch.micro [--out MICRO_TORCH_r11.json] [--platform cuda|cpu]
+    python -m uwslam_tpu_torch.micro [--out MICRO_TORCH_r12.json] [--platform cuda|cpu]
 
 Counterpart of `benchmarks/micro.py` (the JAX package's, whose op list and
 shapes it keeps: a batch of 96 frames of 480 x 640, 2048 points per frame,
@@ -45,12 +45,14 @@ WARM_LAUNCHES = 1024     # small kernels traced and dropped before a profile's w
 # pixel; K2, K3 per valid point (warp 18, projection 6, taps 10, blend 13 per
 # channel); lm_evaluate per valid point (K2's, the residual, weight and cost
 # 11, w J 6, 21 + 6 multiply-adds of the sums 54, 3 more sums; FC: the
-# Jacobian 40).
+# Jacobian 40; affine brightness: the residual's 3 more, w J 2 more, 36 + 8
+# multiply-adds of the sums in place of 21 + 6).
 K1_FLOPS = 25
 PYRAMID_MEAN_FLOPS = 4
 WARP_FLOPS, TAPS_FLOPS, BLEND_FLOPS = 24, 10, 13
 LM_FLOPS_IC = WARP_FLOPS + TAPS_FLOPS + BLEND_FLOPS + 11 + 6 + 54 + 3
 LM_FLOPS_FC = LM_FLOPS_IC + 2 * BLEND_FLOPS + 40
+LM_FLOPS_AFFINE = 3 + 2 + 2 * (36 + 8 - 21 - 6)
 
 
 def bound(n_bytes: float, flops: float) -> dict:
@@ -153,16 +155,26 @@ def bound_sampler(ok, C: int, point_bytes: int) -> dict:
     return bound(n_bytes, flops)
 
 
-def bound_lm_evaluate(pts_valid, ok, fc: bool) -> dict:
+def bound_lm_evaluate(pts_valid, ok, fc: bool, affine: bool = False) -> dict:
     """Per point 12 B and the validity byte; per reference-valid point the
     projection decides; per valid point the reference intensity (4 B), the
     taps (IC 16 B, FC 48 B of the texels' three channels) and in IC the
     Jacobian row (24 B); per pair the pose (64 B), sigma (4 B) and the 45
-    sums written. IC with every point valid: 57 B per point."""
+    sums written (with affine brightness the pair's (a, b), 8 B, and 75
+    sums). IC with every point valid: 57 B per point."""
     B, N = ok.shape
     n_ok = int((pts_valid & ok).sum())
-    n_bytes = B * N * 13 + n_ok * (4 + (48 if fc else 16 + 24)) + B * (64 + 4 + 45 * 4)
-    return bound(n_bytes, n_ok * (LM_FLOPS_FC if fc else LM_FLOPS_IC))
+    per_pair = 64 + 4 + (8 + 75 * 4 if affine else 45 * 4)
+    n_bytes = B * N * 13 + n_ok * (4 + (48 if fc else 16 + 24)) + B * per_pair
+    flops = (LM_FLOPS_FC if fc else LM_FLOPS_IC) + (LM_FLOPS_AFFINE if affine else 0)
+    return bound(n_bytes, n_ok * flops)
+
+
+def brightness(B: int, dev, seed: int = 7) -> torch.Tensor:
+    """A non-zero affine brightness (a, b) per pair, (B, 2), from a seed:
+    a ~ 0.05 N(0, 1), b ~ 5 N(0, 1) gray levels."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, 2, generator=gen) * torch.tensor([0.05, 5.0])).to(dev)
 
 
 def bound_scharr(images) -> dict:
@@ -232,6 +244,7 @@ def euroc_cases(dev) -> list[dict]:
     from .camera.model import PinholeCamera
     from .image.pyramid import build_pyramid
     from .lie import se3
+    from .tracking.photometric import _affine_residual
     from .tracking.points import topk_gradient_points
     from .tracking.robust import WeightKind, mad_sigma
 
@@ -249,9 +262,14 @@ def euroc_cases(dev) -> list[dict]:
     ok3 = ops.cuda_bilinear_sample(texels, pts.uv, texels=True)[1]
     vals, ok = ops.warp_and_sample(tgt.images[0][:, None], pts.p3d, T, cam)
     valid = pts.valid & ok
-    sigma = mad_sigma(torch.where(valid, vals[:, 0] - pts.intensity, 0.0), valid)
+    r = torch.where(valid, vals[:, 0] - pts.intensity, 0.0)
+    sigma = mad_sigma(r, valid)
     lm_args = (pts.intensity, pts.valid, sigma, cam, WeightKind.HUBER)
     evaluator = ops.LMEvaluator(texels, pts.p3d, *lm_args)
+    ab = brightness(1, dev)
+    sigma_ab = mad_sigma(_affine_residual(r, pts.intensity, ab, valid), valid)
+    ab_args = (pts.intensity, pts.valid, sigma_ab, cam, WeightKind.HUBER)
+    evaluator_ab = ops.LMEvaluator(texels, pts.p3d, *ab_args, affine=True)
     out = [pyramid_case(f"euroc_pyramid5(1x{EUROC_H}x{EUROC_W})", frames[:1].contiguous(),
                         bench.LEVELS)]
     for level, img in enumerate(ref.images):
@@ -275,6 +293,11 @@ def euroc_cases(dev) -> list[dict]:
          "plain": lambda: ops.lm_evaluate_plain(texels, pts.p3d, T, *lm_args),
          "note": "one FC LM evaluation of one pair on the target's texels",
          **bound_lm_evaluate(pts.valid, ok, fc=True)},
+        {"op": f"euroc_lm_evaluate_affine(fc,{shape})", "kernel": "lm_evaluate",
+         "fn": lambda: evaluator_ab(T, ab),
+         "plain": lambda: ops.lm_evaluate_plain(texels, pts.p3d, T, *ab_args, ab=ab),
+         "note": "the same with affine brightness (--affine, configs 2 and 3)",
+         **bound_lm_evaluate(pts.valid, ok, fc=True, affine=True)},
     ]
 
 
@@ -284,7 +307,7 @@ def cases(dev, batch: int = B) -> list[dict]:
     from . import bench, ops
     from .image.pyramid import build_pyramid_batched
     from .lie import se3
-    from .tracking.photometric import ic_jacobian
+    from .tracking.photometric import _affine_residual, ic_jacobian
     from .tracking.points import TrackPoints, topk_gradient_points
     from .tracking.robust import WeightKind, mad_sigma
     from .utils.linalg import cholesky_solve_unrolled
@@ -315,11 +338,16 @@ def cases(dev, batch: int = B) -> list[dict]:
     tgt = pyr.images[0][1:]
     vals, ok = ops.warp_and_sample(tgt[:, None], ref.p3d, T_rel, cam)
     valid = ref.valid & ok
-    sigma = mad_sigma(torch.where(valid, vals[:, 0] - ref.intensity, 0.0), valid)
+    r = torch.where(valid, vals[:, 0] - ref.intensity, 0.0)
+    sigma = mad_sigma(r, valid)
     pts0 = TrackPoints(uv=ref.uv, p3d=ref.p3d, intensity=ref.intensity, valid=ref.valid)
-    lm_args = (ref.intensity, ref.valid, sigma, cam, WeightKind.HUBER,
-               ic_jacobian(pts0, ref.gx0, ref.gy0, cam))
+    J_ref = ic_jacobian(pts0, ref.gx0, ref.gy0, cam)
+    lm_args = (ref.intensity, ref.valid, sigma, cam, WeightKind.HUBER, J_ref)
     evaluator = ops.LMEvaluator(tgt, ref.p3d, *lm_args)
+    ab = brightness(batch - 1, dev)
+    sigma_ab = mad_sigma(_affine_residual(r, ref.intensity, ab, valid), valid)
+    ab_args = (ref.intensity, ref.valid, sigma_ab, cam, WeightKind.HUBER, J_ref)
+    evaluator_ab = ops.LMEvaluator(tgt, ref.p3d, *ab_args, affine=True)
 
     ok3 = ops.cuda_bilinear_sample(stacked3, uv)[1]
     ok1 = ops.cuda_bilinear_sample(frames[:, None], uv)[1]
@@ -360,6 +388,11 @@ def cases(dev, batch: int = B) -> list[dict]:
          "plain": lambda: ops.lm_evaluate_plain(tgt, ref.p3d, T_rel, *lm_args),
          "note": "one LM evaluation of the offline chunk's pairs (bench frames)",
          **bound_lm_evaluate(ref.valid, ok, fc=False)},
+        {"op": f"lm_evaluate_affine(ic,{batch - 1}x2048)", "kernel": "lm_evaluate",
+         "fn": lambda: evaluator_ab(T_rel, ab),
+         "plain": lambda: ops.lm_evaluate_plain(tgt, ref.p3d, T_rel, *ab_args, ab=ab),
+         "note": "the same with affine brightness (a, b) from a seed",
+         **bound_lm_evaluate(ref.valid, ok, fc=False, affine=True)},
         *k1_level_cases(frames),
         *euroc_cases(dev),
     ]
@@ -386,7 +419,7 @@ def measure(case: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="MICRO_TORCH_r11.json")
+    ap.add_argument("--out", default="MICRO_TORCH_r12.json")
     ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (the default) times every op; cpu runs each once, untimed")
     ap.add_argument("--batch", type=int, default=B, help="frames per batch (default 96)")

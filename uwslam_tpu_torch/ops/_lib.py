@@ -51,10 +51,10 @@ _SIGNATURES = {
                         _F, _F, _F, _F, _I, _P),
     # img, uv, out, valid, B, C, H, W, N, texels, stream
     "uws_bilinear_sample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # img, p3d, T, ref_int, pts_valid, J_ref, sigma, out, B, H, W, N,
-    # ref_stride, fx, fy, cx, cy, fc, kind, threads, blocks, stream
-    "uws_lm_evaluate": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _I, _I, _I, _I, _P),
+    # img, p3d, T, ab, ref_int, pts_valid, J_ref, sigma, out, B, H, W, N,
+    # ref_stride, fx, fy, cx, cy, fc, affine, kind, threads, blocks, stream
+    "uws_lm_evaluate": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _I, _I, _I, _I, _I, _P),
 }
 
 

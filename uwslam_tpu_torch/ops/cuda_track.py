@@ -12,22 +12,26 @@ semantics. Both are bound by bytes, and at one pair by the launch itself.
 `warp_and_sample` returns the (B, C, N) samples. On the TPU the code that
 consumes them (residual, Jacobian, robust weights and cost, normal
 equations) is fused by XLA; in eager PyTorch it is 30 to 65 small launches
-per evaluation. `lm_evaluate` does all of it in the kernel and returns 48
-floats per pair: H (6 x 6), b, the robust cost's sum, sum |r| and the valid
-count (`LM_*` below). It covers Huber and unweighted least squares at a
-given scale sigma, IC (constant reference Jacobian, one target plane) and FC
-(Jacobian from the sampled target gradients; the target as texels). Tukey
-weights (whose scale is a median of the residuals at every solve), affine
-brightness (8 parameters) and the first evaluation of a level (whose
-residuals give sigma) take `warp_and_sample` and plain operations.
+per evaluation. `lm_evaluate` does all of it in the kernel and returns the
+pair's sums: H, b, the robust cost's sum, sum |r| and the valid count, 48
+floats per pair for the pose alone (`LM_POSE`) and 80 with affine
+brightness (`LM_AFFINE`: the residual r - a I_ref - b, and 8 parameters
+with the constant columns (-I_ref, -1)). It covers Huber and unweighted
+least squares at a given scale sigma, IC (constant reference Jacobian, one
+target plane) and FC (Jacobian from the sampled target gradients; the
+target as texels). Tukey weights (whose scale is a median of the residuals
+at every solve) and the first evaluation of a level (whose residuals give
+sigma) take `warp_and_sample` and plain operations.
 
 `WarpSampler` and `LMEvaluator` bind a kernel to one level's constant inputs:
 shapes, dtypes, devices and contiguity are checked once, and each call
-checks only the pose. `warp_and_sample_plain` and `lm_evaluate_plain` are
-the same functions in plain PyTorch: a CPU tensor takes them, a CUDA tensor
-launches the kernel or raises.
+checks only the pose (and the brightness). `warp_and_sample_plain` and
+`lm_evaluate_plain` are the same functions in plain PyTorch: a CPU tensor
+takes them, a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -35,14 +39,24 @@ from ..lie import so3
 from . import _lib
 from .cuda_sample import bilinear_sample_plain, sampled_image_shape, unpack_texels
 
-# Layout of a pair's 48 sums.
-LM_WIDTH = 48
-LM_H = slice(0, 36)    # H = sum w J J^T, row-major 6 x 6
-LM_B = slice(36, 42)   # b = -sum w J r
-LM_COST = 42           # sum rho(r / sigma) sigma^2 over the valid points
-LM_ABS_R = 43          # sum |r|
-LM_COUNT = 44          # valid points
+class LMLayout(NamedTuple):
+    """Where a pair's sums lie in its row of `lm_evaluate`'s output."""
+    n: int          # parameters: the pose's 6, or 8 with the brightness (a, b)
+    width: int      # floats per pair; zero after `count`
+    H: slice        # H = sum w J J^T, row-major n x n
+    b: slice        # b = -sum w J r
+    cost: int       # sum rho(r / sigma) sigma^2 over the valid points
+    abs_r: int      # sum |r|
+    count: int      # valid points
+
+
+LM_POSE = LMLayout(6, 48, slice(0, 36), slice(36, 42), 42, 43, 44)
+LM_AFFINE = LMLayout(8, 80, slice(0, 64), slice(64, 72), 72, 73, 74)
 _KINDS = {"none": 0, "huber": 1}   # WeightKind values the kernel computes
+
+
+def lm_layout(affine: bool) -> LMLayout:
+    return LM_AFFINE if affine else LM_POSE
 
 
 def warp_and_sample_plain(images, p3d, T, cam, texels: bool = False):
@@ -124,11 +138,12 @@ def fc_jacobian(gx, gy, p3d, T, cam):
 
 
 def lm_evaluate_plain(target, p3d, T, ref_intensity, pts_valid, sigma, cam, kind,
-                      J_ref=None):
-    """`lm_evaluate` in plain PyTorch -> (B, 48): K2's plain version, the
-    residual, the Jacobian, `tracking.robust`'s weights and cost, and the
-    normal equations as the LM loop composes them."""
-    from ..tracking import robust   # tracking imports this module
+                      J_ref=None, ab=None):
+    """`lm_evaluate` in plain PyTorch -> (B, 48), or (B, 80) with the
+    brightness ab (B, 2): K2's plain version, the residual, the Jacobian,
+    the affine residual and columns, `tracking.robust`'s weights and cost,
+    and the normal equations as the LM loop composes them."""
+    from ..tracking import photometric, robust   # tracking imports this module
 
     fc = J_ref is None
     vals, ok = warp_and_sample_plain(target if fc else target[:, None], p3d, T, cam,
@@ -137,6 +152,11 @@ def lm_evaluate_plain(target, p3d, T, ref_intensity, pts_valid, sigma, cam, kind
     r = torch.where(valid, vals[:, 0] - ref_intensity, 0.0)
     J = fc_jacobian(vals[:, 1], vals[:, 2], p3d, T, cam) if fc else J_ref
     J = torch.where(valid[..., None], J, 0.0)
+    if ab is not None:
+        r = photometric._affine_residual(r, ref_intensity, ab, valid)
+        J = torch.cat([J, photometric._affine_columns(ref_intensity, valid)], dim=-1)
+    layout = lm_layout(ab is not None)
+    n = layout.n
     wJ = robust.weights(r, valid, kind, sigma=sigma)[..., None] * J
     H = torch.einsum("bni,bnj->bij", J, wJ)
     b = -torch.einsum("bni,bn->bi", wJ, r)
@@ -145,16 +165,17 @@ def lm_evaluate_plain(target, p3d, T, ref_intensity, pts_valid, sigma, cam, kind
         torch.abs(r).sum(-1),
         valid.sum(-1).to(r.dtype),
     ], dim=-1)
-    pad = torch.zeros((r.shape[0], LM_WIDTH - 45), dtype=r.dtype, device=r.device)
-    return torch.cat([H.reshape(-1, 36), b, tail, pad], dim=-1)
+    pad = torch.zeros((r.shape[0], layout.width - layout.count - 1), dtype=r.dtype,
+                      device=r.device)
+    return torch.cat([H.reshape(-1, n * n), b, tail, pad], dim=-1)
 
 
 def launch_shape(B: int, N: int, sm_count: int) -> tuple[int, int]:
     """(threads per block, blocks per pair) of an `lm_evaluate` launch: blocks
-    of 256 threads, and per pair a cluster of 1, 2, 4 or 8 of them. One pair
-    of 2048 points spreads over 8 SMs; many pairs get fewer blocks each
-    (about two blocks per SM in all), whose threads then stride over several
-    points and reduce once."""
+    of 256 threads (the most the affine form takes), and per pair a cluster
+    of 1, 2, 4 or 8 of them. One pair of 2048 points spreads over 8 SMs; many
+    pairs get fewer blocks each (about two blocks per SM in all), whose
+    threads then stride over several points and reduce once."""
     want = min(8, -(-N // 256), max(1, 2 * sm_count // B))
     blocks = 1
     while blocks * 2 <= want:
@@ -164,7 +185,9 @@ def launch_shape(B: int, N: int, sm_count: int) -> tuple[int, int]:
 
 class LMEvaluator:
     """`lm_evaluate` bound to one level of B pairs: `evaluator(T)` -> the
-    (B, 48) sums of the evaluation at poses T (B, 4, 4).
+    (B, 48) sums of the evaluation at poses T (B, 4, 4); with affine=True
+    `evaluator(T, ab)` -> the (B, 80) sums at poses T and brightness ab
+    (B, 2) f32 (`layout` says where each sum lies).
 
     target: IC (`J_ref` given, (B, N, 6) f32, 0 where the point is invalid)
     the target level (B, H, W) f32; FC (`J_ref` None) its texels
@@ -174,15 +197,17 @@ class LMEvaluator:
     scale (clamped at 1 as `tracking.robust` does); kind WeightKind.HUBER or
     NONE.
 
-    On the card every call writes the same (B, 48) buffer, allocated here:
+    On the card every call writes the same output buffer, allocated here:
     use or copy a result before the next call."""
 
     def __init__(self, target, p3d, ref_intensity, pts_valid, sigma, cam, kind,
-                 J_ref=None):
+                 J_ref=None, affine: bool = False):
         if kind.value not in _KINDS:
             raise ValueError(f"lm_evaluate computes {sorted(_KINDS)} weights, not {kind}")
         self._plain_args = (p3d, ref_intensity, pts_valid, sigma, cam, kind, J_ref)
         self.target = target
+        self.affine = affine
+        self.layout = lm_layout(affine)
         self.device = dev = target.device
         if dev.type == "cpu":
             return
@@ -201,33 +226,38 @@ class LMEvaluator:
             _lib.require(J_ref, "J_ref", (B, N, 6), dev)
             if J_ref.data_ptr() % 8:
                 raise ValueError("J_ref must be 8-byte aligned")
-        self._pose_shape = (B, 4, 4)
-        self.out = torch.empty((B, LM_WIDTH), dtype=torch.float32, device=dev)
+        self._pose_shape, self._ab_shape = (B, 4, 4), (B, 2)
+        self.out = torch.empty((B, self.layout.width), dtype=torch.float32, device=dev)
         self._head = (target.data_ptr(), p3d.data_ptr())
         self._tail = (
             ref_intensity.data_ptr(), pts_valid.data_ptr(),
             0 if fc else J_ref.data_ptr(), sigma.data_ptr(), self.out.data_ptr(),
             B, H, W, N, ref_intensity.stride(0), cam.fx, cam.fy, cam.cx, cam.cy,
-            int(fc), _KINDS[kind.value],
+            int(fc), int(affine), _KINDS[kind.value],
             *launch_shape(B, N, torch.cuda.get_device_properties(dev).multi_processor_count),
         )
 
-    def __call__(self, T):
+    def __call__(self, T, ab=None):
+        if (ab is not None) != self.affine:
+            raise ValueError("the brightness ab is given exactly when the evaluator is affine")
         if self.device.type == "cpu":
             p3d, *rest = self._plain_args
-            return lm_evaluate_plain(self.target, p3d, T, *rest)
+            return lm_evaluate_plain(self.target, p3d, T, *rest, ab=ab)
         _lib.require(T, "T", self._pose_shape, self.device)
+        if self.affine:
+            _lib.require(ab, "ab", self._ab_shape, self.device)
         _lib.launch("uws_lm_evaluate", self.device, *self._head, T.data_ptr(),
-                    *self._tail)
+                    ab.data_ptr() if self.affine else 0, *self._tail)
         lm_evaluate.launches += 1
         return self.out
 
 
 def lm_evaluate(target, p3d, T, ref_intensity, pts_valid, sigma, cam, kind,
-                J_ref=None):
-    """One fused LM evaluation (see `LMEvaluator`) -> (B, 48) f32."""
+                J_ref=None, ab=None):
+    """One fused LM evaluation (see `LMEvaluator`) -> (B, 48) f32, or
+    (B, 80) with the brightness ab (B, 2)."""
     return LMEvaluator(target, p3d, ref_intensity, pts_valid, sigma, cam, kind,
-                       J_ref)(T)
+                       J_ref, affine=ab is not None)(T, ab)
 
 
 lm_evaluate.launches = 0

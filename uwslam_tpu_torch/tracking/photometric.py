@@ -9,12 +9,13 @@ carries the pair dimension B first, and the live path is B = 1 of the same
 code.
 
 The JAX package's `_warp_sample` is kernel K2. Here an LM evaluation with
-Huber weights or none, without affine brightness, is ONE launch of K2's
-redesign `ops.cuda_track.lm_evaluate`: warp, sample, residual, Jacobian,
+Huber weights or none, with or without affine brightness, is ONE launch of
+K2's redesign `ops.cuda_track.lm_evaluate`: warp, sample, residual (with
+affine=True r - a I_ref - b), Jacobian (with the columns (-I_ref, -1)),
 robust weight and cost, and the pair's normal equations; the loop carries
-48 floats per pair, and residuals and Jacobians never reach device memory.
-Tukey weights (their scale is a median of the residuals at every solve),
-affine=True (8 parameters) and the first evaluation of every level (whose
+48 floats per pair (80 with affine), and residuals and Jacobians never
+reach device memory. Tukey weights (their scale is a median of the
+residuals at every solve) and the first evaluation of every level (whose
 residuals give the level's scale sigma0) go through
 `ops.cuda_track.warp_and_sample` (C = 3 texels in FC, C = 1 in IC and the
 basin guard) and plain operations. The reference-side `bilinear_sample_auto`
@@ -39,17 +40,7 @@ from ..camera.model import PinholeCamera
 from ..image.pyramid import FramePyramid
 from ..lie import se3, so3
 from ..ops.cuda_sample import cuda_bilinear_sample, pack_texels
-from ..ops.cuda_track import (
-    LM_ABS_R,
-    LM_B,
-    LM_COST,
-    LM_COUNT,
-    LM_H,
-    LMEvaluator,
-    WarpSampler,
-    fc_jacobian,
-    warp_and_sample,
-)
+from ..ops.cuda_track import LMEvaluator, WarpSampler, fc_jacobian, lm_layout, warp_and_sample
 from ..utils.linalg import cholesky_solve_unrolled
 from ..utils.precision import disable_tf32
 from .points import TrackPoints
@@ -167,20 +158,22 @@ def _plain_steps(residuals, first, sigma0, weight_kind, J_const):
     return evaluation(*first), evaluate, solve
 
 
-def _fused_steps(evaluator: LMEvaluator, T0):
+def _fused_steps(evaluator: LMEvaluator, T0, ab0):
     """The LM loop's steps from `lm_evaluate`: one launch per evaluation; the
-    state carried is the pair's 48 sums."""
+    state carried is the pair's sums (48 floats, 80 with affine brightness:
+    the 8 x 8 system of [xi, a, b])."""
+    lay = evaluator.layout
 
     def evaluate(T, ab):
-        sums = evaluator(T)
-        count = sums[:, LM_COUNT]
-        return sums[:, LM_COST] / torch.clamp(count, min=1.0), count.long(), (sums,)
+        sums = evaluator(T, ab) if evaluator.affine else evaluator(T)
+        count = sums[:, lay.count]
+        return sums[:, lay.cost] / torch.clamp(count, min=1.0), count.long(), (sums,)
 
     def solve(state, lam):
         sums = state[0]
-        return _solve_damped(sums[:, LM_H].view(-1, 6, 6), sums[:, LM_B], lam)
+        return _solve_damped(sums[:, lay.H].view(-1, lay.n, lay.n), sums[:, lay.b], lam)
 
-    err0, n0, (sums0,) = evaluate(T0, None)
+    err0, n0, (sums0,) = evaluate(T0, ab0)
     # The evaluator writes one buffer: the initial state keeps a copy.
     return (err0, n0, (sums0.clone(),)), evaluate, solve
 
@@ -269,26 +262,32 @@ def _lm_loop(
                  done=done, n_inlier=n_inlier)
 
 
-def _intensity_residual(sampler, pts, ref_intensity, T):
-    """r = I_tgt - I_ref (0 where invalid) and validity at the points warped
+def _intensity_residual(sampler, pts, ref_intensity, T, ab=None):
+    """r = I_tgt - I_ref (0 where invalid), or with the brightness ab (B, 2)
+    the affine residual r - a I_ref - b, and validity at the points warped
     by T, through a K2 sampler bound to the target's intensity plane."""
     vals, ok = sampler(T)                                     # K2, C = 1
     valid = pts.valid & ok
-    return torch.where(valid, vals[:, 0] - ref_intensity, 0.0), valid
+    r = torch.where(valid, vals[:, 0] - ref_intensity, 0.0)
+    if ab is not None:
+        r = _affine_residual(r, ref_intensity, ab, valid)
+    return r, valid
 
 
 def _run_level(T0, ab0, residuals, intensity_residual, make_evaluator, J_const,
                max_iters, eps, weight_kind, init_lambda, affine,
                keep_residuals) -> LMState:
     """One level's LM. The first evaluation gives the level's scale sigma0
-    (a median, so it needs every residual). Where the weight kind allows
-    and affine is off, that is `intensity_residual(T) -> (r, valid)` and the
-    iterations run fused (`make_evaluator(sigma0) -> LMEvaluator`); else
-    everything runs on `residuals(T, ab) -> (r, J or None, valid)`."""
-    fused = weight_kind in FUSED_KINDS and not affine
+    (a median, so it needs every residual). Where the weight kind allows,
+    that is `intensity_residual(T, ab) -> (r, valid)` (the affine residual
+    at (T0, ab0) when affine, ab None otherwise) and the iterations run
+    fused (`make_evaluator(sigma0) -> LMEvaluator`); else everything runs
+    on `residuals(T, ab) -> (r, J or None, valid)`."""
+    fused = weight_kind in FUSED_KINDS
     if fused:
-        sigma0 = mad_sigma(*intensity_residual(T0))
-        steps = _fused_steps(make_evaluator(sigma0), T0)
+        ab = ab0 if affine else None
+        sigma0 = mad_sigma(*intensity_residual(T0, ab))
+        steps = _fused_steps(make_evaluator(sigma0), T0, ab)
     else:
         first = residuals(T0, ab0)
         sigma0 = mad_sigma(first[0], first[2])
@@ -301,7 +300,7 @@ def _run_level(T0, ab0, residuals, intensity_residual, make_evaluator, J_const,
         J = best.state[2] if len(best.state) == 3 else J_const
         return LMState(r_best=r, J=J, valid_best=valid, abs_r=torch.abs(r).sum(-1),
                        **common)
-    abs_r = best.state[0][:, LM_ABS_R]
+    abs_r = best.state[0][:, lm_layout(affine).abs_r]
     if not keep_residuals:
         return LMState(r_best=None, J=J_const, valid_best=None, abs_r=abs_r, **common)
     r, J, valid = residuals(best.T, best.ab)
@@ -311,7 +310,7 @@ def _run_level(T0, ab0, residuals, intensity_residual, make_evaluator, J_const,
 
 def _ab0(T0: torch.Tensor, ab0: torch.Tensor | None) -> torch.Tensor:
     if ab0 is not None:
-        return ab0
+        return ab0.contiguous()
     return torch.zeros((T0.shape[0], 2), dtype=T0.dtype, device=T0.device)
 
 
@@ -338,9 +337,9 @@ def lm_level(
     as texels. Each iteration samples all three target channels at the
     warped points and rebuilds the Jacobian there: in one `lm_evaluate`
     launch with Huber weights or none, through K2 (C = 3) and plain
-    operations with Tukey weights or affine=True. affine=True estimates
-    (a, b) jointly: the state becomes [xi, a, b] with the two constant
-    columns (-I_ref, -1). Returns the best accepted state (`T`, `ab`);
+    operations with Tukey weights. affine=True estimates (a, b) jointly:
+    the state becomes [xi, a, b] with the two constant columns (-I_ref, -1),
+    in the same one launch. Returns the best accepted state (`T`, `ab`);
     `r_best`, `J` and `valid_best` at that state cost one more evaluation on
     the fused path and are None with keep_residuals=False."""
     texels = pack_texels(image, grad_x, grad_y)
@@ -354,12 +353,12 @@ def lm_level(
             J = torch.cat([J, _affine_columns(ref_intensity, valid)], dim=-1)
         return r, J, valid
 
-    def intensity_residual(T):
-        return _intensity_residual(plane, pts, ref_intensity, T)
+    def intensity_residual(T, ab):
+        return _intensity_residual(plane, pts, ref_intensity, T, ab)
 
     def make_evaluator(sigma0):
         return LMEvaluator(texels, pts.p3d, ref_intensity, pts.valid, sigma0, cam,
-                           weight_kind)
+                           weight_kind, affine=affine)
 
     return _run_level(T0, _ab0(T0, ab0), residuals, intensity_residual, make_evaluator,
                       None, max_iters, eps, weight_kind, init_lambda, affine,
@@ -397,30 +396,29 @@ def lm_level_ic(
     T0 (B, 4, 4); pts at this level's pixel scale; ref_intensity and the
     reference gradients sampled per point, (B, N); image the target level
     (B, H, W). The Jacobian is built once from the reference gradients at
-    the identity warp (with the constant affine columns when affine=True);
-    each iteration samples only the target intensity: in one `lm_evaluate`
-    launch with Huber weights or none, through K2 (C = 1) and plain
-    operations with Tukey weights or affine=True. The returned `J` is that
-    constant Jacobian; `r_best` and `valid_best` cost one more K2 call on
-    the fused path and are None with keep_residuals=False."""
+    the identity warp (with the constant affine columns when affine=True,
+    which `lm_evaluate` appends itself); each iteration samples only the
+    target intensity: in one `lm_evaluate` launch with Huber weights or
+    none, through K2 (C = 1) and plain operations with Tukey weights. The
+    returned `J` is that constant Jacobian; `r_best` and `valid_best` cost
+    one more K2 call on the fused path and are None with
+    keep_residuals=False."""
     valid_pts = pts.valid
     J = J6 = ic_jacobian(pts, ref_grad_x, ref_grad_y, cam)
     if affine:
         J = torch.cat([J, _affine_columns(ref_intensity, valid_pts)], dim=-1)
     plane = WarpSampler(image[:, None], pts.p3d, cam)
 
-    def intensity_residual(T):
-        return _intensity_residual(plane, pts, ref_intensity, T)
+    def intensity_residual(T, ab):
+        return _intensity_residual(plane, pts, ref_intensity, T, ab)
 
     def residuals(T, ab):
-        r, valid = intensity_residual(T)
-        if affine:
-            r = _affine_residual(r, ref_intensity, ab, valid)
+        r, valid = intensity_residual(T, ab if affine else None)
         return r, None, valid
 
     def make_evaluator(sigma0):
         return LMEvaluator(image, pts.p3d, ref_intensity, valid_pts, sigma0, cam,
-                           weight_kind, J_ref=J6)
+                           weight_kind, J_ref=J6, affine=affine)
 
     return _run_level(T0, _ab0(T0, ab0), residuals, intensity_residual, make_evaluator,
                       J, max_iters, eps, weight_kind, init_lambda, affine,
