@@ -302,6 +302,8 @@ from uwslam_tpu_torch.micro import (  # the card's bound and the kernels' operat
     scharr_conv_call,
     warm_profile,
 )
+from uwslam_tpu_torch.system import BOOT_STAGES, KEYFRAME_PARTS, PIPE_DIAG, PLAIN_STAGES
+from uwslam_tpu_torch.utils.profiling import device_work
 
 K1_ATOL = 0.0        # the pyramid kernel and K1: bit-equal (rounded intrinsics in the plain
                      # version's order)
@@ -1042,7 +1044,7 @@ def profiled_kernels(fn, reps: int, ops: bool = False, attempts: int = 3):
 
     for _ in range(attempts):
         averages = warm_profile(run, fn).key_averages()
-        kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+        kernels = device_work(averages)
         if sum(e.self_device_time_total for e in kernels) > 0:
             break
     else:
@@ -1643,9 +1645,17 @@ def depth_runs(frames, poses, depths, table, worker, side):
     return out
 
 
+def results(diag):
+    """A megastep's diagnostics row without the stage times stamped after
+    its results (`system.PIPE_DIAG`), which differ from call to call."""
+    return diag[..., :PIPE_DIAG]
+
+
 def phase_graph_vs_eager(frames, n: int = 4):
     """Each of the first n pipelined frames: the graph's replay against the
-    eager megastep on the same inputs, every output bit-equal."""
+    eager megastep on the same inputs, every output bit-equal (of the
+    diagnostics row its 26 results: the stage times after them are the
+    card's clock)."""
     from uwslam_tpu_torch.ops.graph import tree_leaves
 
     system = make_system(frames.device)
@@ -1658,8 +1668,8 @@ def phase_graph_vs_eager(frames, n: int = 4):
                      system.keyframes.latest.T_wc, system._eye)
         system.process_frame_async(frames[i], timestamp=float(i))
         rec = system._pipe_queue[-1]
-        got = (rec["pyr"], rec["pts"], system._velocity, system._T_wc, rec["diag"])
-        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        got = (rec["pyr"], rec["pts"], system._velocity, system._T_wc, results(rec["diag"]))
+        for a, b in zip(tree_leaves(got), tree_leaves((*want[:-1], results(want[-1])))):
             if not torch.equal(a, b):
                 raise AssertionError(
                     f"frame {i}: graph replay differs from the eager megastep by "
@@ -1766,7 +1776,6 @@ def phase_pipelined_timing(frames, frame_ms, sync: dict, table):
     synchronous loop. Tracing each of a graph's kernels slows the window
     down, so its idle share is an upper bound; `idle_share_vs_unprofiled`
     divides the same busy time by phase 11b's mean frame time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     steady = frame_ms[LIVE_WARMUP:]
@@ -1799,7 +1808,7 @@ def phase_pipelined_timing(frames, frame_ms, sync: dict, table):
         if replays != reps:
             raise AssertionError(f"{replays} of the {reps} profiled frames went through the graph")
         averages = prof.key_averages()
-        kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+        kernels = device_work(averages)
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
         if not busy_ms > 0:
             raise AssertionError("the profiler saw no device time in the pipelined window")
@@ -1813,6 +1822,7 @@ def phase_pipelined_timing(frames, frame_ms, sync: dict, table):
                              f"kernel name, the wrappers counted {counted_by_wrappers}")
     (step,) = system._steps.values()
     system.flush()
+    step_ms = stage_ms(system, PLAIN_STAGES)
     graph_launches = sum(e.count for e in averages if e.key == "cudaGraphLaunch") / reps
     return {
         "frames_per_s": len(steady) / (sum(steady) / 1e3),
@@ -1831,6 +1841,7 @@ def phase_pipelined_timing(frames, frame_ms, sync: dict, table):
                 (k["name"] for k in table), step.kernel_launches)),
         },
         "idle_share_vs_unprofiled": 1.0 - busy_ms / statistics.mean(steady),
+        "step_ms_per_replay": step_ms,
         "synchronous_same_run": {k: sync[k] for k in (
             "frames_per_s", "latency_ms_median", "latency_ms_p90",
             "device_busy_ms_per_frame", "idle_share", "launches_per_frame")},
@@ -2251,7 +2262,8 @@ def config2_runs(scene, scene_poses, plane_poses, table, worker, side):
 
 def phase_boot_graph_vs_eager(scene, n: int = 3):
     """The bootstrap megastep's replay against its eager call on the same
-    inputs (the frame's RANSAC uniforms included), every output bit-equal."""
+    inputs (the frame's RANSAC uniforms included), every output bit-equal
+    (of the diagnostics row its results, as in phase 11a)."""
     from uwslam_tpu_torch.ops.graph import tree_leaves
 
     system = front_end_system(scene.device, bootstrap=True)
@@ -2267,8 +2279,8 @@ def phase_boot_graph_vs_eager(scene, n: int = 3):
             system.process_frame_async(scene[i], timestamp=float(i))
             rec = system._pipe_queue[-1]
             got = (rec["pyr"], *rec["feats"], system._velocity, system._T_wc, rec["prior"],
-                   rec["kp_depth"], rec["pts"], rec["diag"])
-            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                   rec["kp_depth"], rec["pts"], results(rec["diag"]))
+            for a, b in zip(tree_leaves(got), tree_leaves((*want[:-1], results(want[-1])))):
                 if not torch.equal(a, b):
                     raise AssertionError(
                         f"frame {i}: the bootstrap graph's replay differs from the eager "
@@ -2286,9 +2298,9 @@ def phase_boot_graph_vs_eager(scene, n: int = 3):
 
 
 def phase_config2_pipelined(scene, scene_poses, table, sync_system):
-    """Config 2 through the pipelined loop against the synchronous run, and a
-    profiled window of the bootstrap megastep."""
-    from torch.autograd import DeviceType
+    """Config 2 through the pipelined loop against the synchronous run, the
+    device ms of the bootstrap megastep's stages (its stamps) over that run,
+    and a profiled window of the bootstrap megastep."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = scene.device
@@ -2310,6 +2322,9 @@ def phase_config2_pipelined(scene, scene_poses, table, sync_system):
     if step.replays < scene.shape[0] - 16:
         raise AssertionError(f"only {step.replays} frames went through the bootstrap graph")
     steady = frame_ms[-(step.replays - 4):]
+    step_ms = stage_ms(system, BOOT_STAGES)
+    if step_ms["frames"] != step.replays:
+        raise AssertionError(f"{step_ms['frames']} of {step.replays} bootstrap replays stamped")
     # A profiled window of a fresh run, once it is in the megastep.
     fresh = front_end_system(dev, bootstrap=True)
     warm = scene.shape[0] - BOOT_PROFILED_FRAMES - 2
@@ -2329,7 +2344,7 @@ def phase_config2_pipelined(scene, scene_poses, table, sync_system):
                     fresh._ransac_uniforms(desc.shape[0], 0))
     top = top_operators(lambda: fresh._build_step_boot()(*eager_inputs))
     fresh.flush()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_work(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / max(profiled, 1)
     return {
         "launches": launches, "graph_replays": step.replays,
@@ -2338,6 +2353,7 @@ def phase_config2_pipelined(scene, scene_poses, table, sync_system):
         "frame_ms_median": statistics.median(steady),
         "frame_ms_p90": float(np.percentile(steady, 90)),
         "frames_per_s": len(steady) / (sum(steady) / 1e3),
+        "step_ms_per_replay": step_ms,
         "profiled_frames": profiled,
         "device_busy_ms_per_frame": busy_ms if busy_ms > 0 else None,
         "device_launches_per_frame": sum(e.count for e in kernels) / max(profiled, 1),
@@ -2351,6 +2367,19 @@ def phase_config2_pipelined(scene, scene_poses, table, sync_system):
 def ba_system(device, features: bool):
     """Config 4 at the live design point (phase 6's tracker)."""
     return front_end_system(device, ba=True, features=features, tracker=live_config().tracker)
+
+
+def stage_ms(system, stages: tuple[str, ...]) -> dict:
+    """Mean device ms of each megastep stage (`FrameState.step_ms`, the
+    stamps inside the graph) over the frames whose replay stamped `stages`,
+    and their count; every stage time must be non-negative."""
+    stamped = [s.step_ms for s in system.trajectory
+               if s.step_ms is not None and tuple(s.step_ms) == stages]
+    if not stamped or min(min(ms.values()) for ms in stamped) < 0:
+        raise AssertionError(f"{len(stamped)} frames stamped {stages}, "
+                             f"or a negative stage time")
+    return {"frames": len(stamped),
+            **{k: statistics.mean(ms[k] for ms in stamped) for k in stages}}
 
 
 def frame_summary(ms) -> dict:
@@ -2467,8 +2496,8 @@ def config4_runs(frames, poses, table, plain_frame_ms, worker, side):
             "ate": ate_pipe, "frame_ms_ba_on": frame_summary(ms_on),
             "frame_ms_ba_off": frame_summary(plain_frame_ms),
             "match_tables_bit_equal_to_eager": tables,
-            "retire_host_ms_per_keyframe": {k: 1e3 * v / n_kf
-                                            for k, v in pipe.retire_host_s.items()},
+            "retire_host_ms_per_keyframe": {k: 1e3 * pipe.retire_host_s[k] / n_kf
+                                            for k in KEYFRAME_PARTS},
             "keyframes": n_kf,
         },
     }
@@ -2973,12 +3002,13 @@ def run_loop_config(data_args, config: int, platform: str, table=None,
         out["frame_ms"] = {"median": statistics.median(ms), "p90": float(np.percentile(ms, 90)),
                            "max": max(ms), "mean": statistics.mean(ms)}
         out["frames_per_s"] = 1e3 / statistics.mean(ms)
-    ls = system.loop_stats
+    ls, host_s = system.loop_stats, system.retire_host_s
     if ls["keyframes"]:
+        detect_s, pgo_s = host_s.get("loop_detect", 0.0), host_s.get("loop_pgo", 0.0)
         out["host_ms_per_keyframe"] = {
-            "loop_detection": 1e3 * ls["detect_s"] / ls["keyframes"],
-            "pgo": 1e3 * ls["pgo_s"] / ls["keyframes"],
-            "pgo_per_solve": 1e3 * ls["pgo_s"] / max(ls["pgo_runs"], 1)}
+            "loop_detection": 1e3 * detect_s / ls["keyframes"],
+            "pgo": 1e3 * pgo_s / ls["keyframes"],
+            "pgo_per_solve": 1e3 * pgo_s / max(ls["pgo_runs"], 1)}
     if table is not None:
         out["launches"] = {k["name"]: k["wrapper"].launches for k in table}
     out["_poses"] = system.export_trajectory()[1]

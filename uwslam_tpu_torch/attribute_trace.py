@@ -56,6 +56,7 @@ from . import bench
 from .offline_budget import Design, full_chunk, identity, scene
 from .micro import warm_profile
 from .ops._lib import launch_ranges
+from .utils.profiling import device_work
 
 CHUNKS = 3
 INPUT_STEP = 0.1             # gray levels added to the frames of chunk i
@@ -169,14 +170,12 @@ def attribute_events(events: list[dict], cuda: bool) -> dict:
 
 def profiler_total_ms(prof, cuda: bool) -> float:
     """The profiler's own total per profile: its kernel time on a card (the
-    launcher's ranges' device-side copies left out), its operators' self
+    device images of host ranges left out: `device_work`), its operators' self
     time on the CPU (Python calls left out)."""
     from torch.autograd import DeviceType
 
     if cuda:
-        return sum(a.self_device_time_total for a in prof.key_averages()
-                   if a.device_type == DeviceType.CUDA
-                   and not a.key.startswith(RANGE_PREFIX)) / 1e3
+        return sum(a.self_device_time_total for a in device_work(prof.key_averages())) / 1e3
     return sum(a.self_cpu_time_total for a in prof.key_averages()
                if a.device_type == DeviceType.CPU and not _PYTHON_EVENT.search(a.key)) / 1e3
 

@@ -27,7 +27,12 @@ JAX package's format, so `eval.py`'s patterns read them. Session tooling:
 printed), `--map-out` writes the keyframe map as PLY, `--checkpoint` saves
 the session after the last frame, `--resume` continues a saved one (at its
 next dataset index unless `-s` is given), `--trace DIR` writes a
-`torch.profiler` Chrome trace of the run into DIR.
+`torch.profiler` Chrome trace of the run into DIR, in which the system's
+host spans are `uws_*` ranges. After the last frame one stderr line starting
+`trace:` gives the system's tracer (`utils.profiling.Tracer`): frames
+dispatched, retired, synchronous, lost and relocalized, keyframes, graph
+captures, the megastep's mean device ms by stage and the host ms per frame
+waiting and working; `--profile` adds its per-stage report.
 """
 from __future__ import annotations
 
@@ -413,6 +418,7 @@ def run_live(args, system, seq, viz=None) -> None:
         nw = n - warmup
         print(f"steady state: {nw} frames in {dtw:.2f}s ({nw / dtw:.1f} fps warm, "
               f"first {warmup} frames excluded)", file=sys.stderr)
+    print(system.tracer.line(), file=sys.stderr)
     if system.ba_stats["runs"]:
         bs = system.ba_stats
         print(f"window BA: {bs['iters']} LM iters over {bs['runs']} runs in "

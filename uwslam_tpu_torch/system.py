@@ -28,10 +28,15 @@ vector per frame (42 floats). `process_frame_async` is the pipelined loop:
 the whole steady-state frame is one function (`_build_step_plain`, or
 `_build_step_boot` once the depth prior is installed), on a CUDA device
 captured once into a CUDA graph and replayed per frame; its
-26-float diagnostics are read back four frames at a time through pinned
-memory, one call after they were staged, so a frame's state (and the
-keyframe it may become) lands 5 to 9 frames after its dispatch. Call
-`flush()` after the last frame.
+26-float diagnostics (and, on a CUDA device, the device ms of each of its
+stages, stamped inside the graph) are read back four frames at a time
+through pinned memory, one call after they were staged, so a frame's state
+(and the keyframe it may become) lands 2 to 5 calls after its dispatch.
+Call `flush()` after the last frame.
+
+`self.tracer` (`utils.profiling.Tracer`) times the pipelined loop's parts as
+host spans into `retire_host_s` and counts its frames, keyframes and graph
+captures; the synchronous path's stages are its spans `sync_<stage>`.
 """
 from __future__ import annotations
 
@@ -77,6 +82,7 @@ from .map.keyframes import Keyframe, KeyframeDecision, KeyframeStore
 from .map.loop_closure import LoopCloser, LoopConfig
 from .map.tracks import TrackGraph
 from .ops.graph import CapturedStep, tree_clone
+from .ops.stamp import StageClock
 from .tracking.depth_prior import (
     DepthPrior,
     fill_prior,
@@ -91,12 +97,24 @@ from .tracking.depth_refine import refine_inverse_depth, transfer_depths
 from .tracking.photometric import track
 from .tracking.points import _depth_at, dense_points, patch_points, topk_gradient_points
 from .tracking.robust import masked_median
-from .utils.profiling import StageTimer
+from .utils.profiling import StageTimer, Tracer
 
 PNP_HYPOTHESES = 128
 # A host-side pose whose R^T R is farther than this from I is re-orthonormalized
 # (`SlamSystem._np_normalize_se3`); f32 products of rigid motions stay within it.
 HOST_DRIFT_ATOL = 1e-6
+# The megastep's diagnostics row: 26 floats (inliers, point capacity, error,
+# finiteness, T_wc_new, log(T_ref^-1 T_wc_new)), then on a CUDA device the
+# device milliseconds of each stage, stamped inside the step.
+PIPE_DIAG = 26
+PLAIN_STAGES = ("ingest", "track", "pose", "select")
+BOOT_STAGES = ("ingest", "features", "match", "track", "pose", "prior", "select")
+# A keyframe's retirement with window BA, by part (host seconds).
+KEYFRAME_PARTS = ("make_keyframe", "match_dispatch", "match_wait", "add_keyframe_matches",
+                  "build_problem")
+# Host spans of the pipelined loop (`Tracer`), in the seconds table from the start.
+LOOP_SPANS = ("frame", "flush", "dispatch", "replay", "capture", "retire_wait", "retire",
+              "keyframe", "relocalize", "stage_diags")
 
 
 @dataclass
@@ -114,6 +132,12 @@ class FrameState:
     ref_kf_id: int = -1
     T_kf_frame: np.ndarray | None = None   # ref-kf <- frame
     status: str = "ok"        # "ok" | "lost" | "relocalized"
+    # Pipelined frames only: frames dispatched and not yet retired when this
+    # one retired, itself included.
+    in_flight: int | None = None
+    # Device ms of each megastep stage (PLAIN_STAGES or BOOT_STAGES) for this
+    # frame: pipelined frames on a CUDA device only.
+    step_ms: dict[str, float] | None = None
 
 
 def _gated(grid: DepthPrior, support: torch.Tensor, min_support: int) -> DepthPrior:
@@ -259,9 +283,9 @@ class SlamSystem:
         if self.config.use_loop_closure:
             self._loops = LoopCloser(cam=self.cam, config=LoopConfig(**asdict(self.config.loop)),
                                      device=self.device)
-        # Host seconds of loop closure at keyframes: detection (retrieval and
-        # verification) and the pose-graph solves.
-        self.loop_stats = {"keyframes": 0, "detect_s": 0.0, "pgo_runs": 0, "pgo_s": 0.0}
+        # Loop closure: keyframes it saw and pose-graph solves (their host
+        # seconds are the spans loop_detect and loop_pgo).
+        self.loop_stats = {"keyframes": 0, "pgo_runs": 0}
         # Every keyframe's features, for the global BA at the end of a run
         # (global_ba): (frame_id, kp_uv, kp_desc, kp_valid, kp_p3d), on the
         # device; the sliding window forgets them.
@@ -270,10 +294,10 @@ class SlamSystem:
         # Window BA: LM iterations, the host's time (dispatch and any wait)
         # and the solves retired.
         self.ba_stats = {"iters": 0, "time": 0.0, "runs": 0}
-        # Host seconds of a keyframe's retirement with window BA, by part.
-        self.retire_host_s = dict.fromkeys(
-            ("make_keyframe", "match_dispatch", "match_wait", "add_keyframe_matches",
-             "build_problem"), 0.0)
+        # Host seconds by part: a keyframe's retirement with window BA, and
+        # every span of the tracer (the pipelined loop's from the start).
+        self.retire_host_s = dict.fromkeys((*KEYFRAME_PARTS, *LOOP_SPANS), 0.0)
+        self.tracer = Tracer(self.retire_host_s)
         self._match_inflight = None # a dispatched keyframe match: table, event, window
         self._ba_inflight = None    # a dispatched solve: packed result, event
         self._ba_stream = None      # the side stream reprojection BA runs on
@@ -284,7 +308,7 @@ class SlamSystem:
         self._velocity = self._eye       # constant-velocity model, T_prev<-cur
         self._frame_id = 0
         self.trajectory: list[FrameState] = []
-        self.timers = StageTimer(sync=self.config.profile)
+        self.timers = StageTimer(self.tracer, sync=self.config.profile)
         # The pipelined loop: frames in flight, oldest first.
         self._steps: dict[tuple, CapturedStep] = {}   # (dtype, shape) -> graph
         self._pipe_queue: list[dict] = []
@@ -669,17 +693,15 @@ class SlamSystem:
         if self._loops is None or kf.kp_desc is None:
             return
         self._retire_window_ba(wait=True)
-        t0 = time.perf_counter()
-        self._loops.add_keyframe(kf)
-        edge = self._loops.detect()
-        t1 = time.perf_counter()
+        with self.tracer.span("loop_detect"):
+            self._loops.add_keyframe(kf)
+            edge = self._loops.detect()
         self.loop_stats["keyframes"] += 1
-        self.loop_stats["detect_s"] += t1 - t0
         if edge is None:
             return
-        corrected = self._loops.optimize()
+        with self.tracer.span("loop_pgo"):
+            corrected = self._loops.optimize()
         self.loop_stats["pgo_runs"] += 1
-        self.loop_stats["pgo_s"] += time.perf_counter() - t1
         if not corrected or not all(np.isfinite(T).all() for T in corrected.values()):
             return
         self._kf_poses.update((fid, np.array(T, np.float32)) for fid, T in corrected.items())
@@ -729,6 +751,7 @@ class SlamSystem:
         [0, 255]; `depth` an (H, W) depth image in raw sensor units, TUM's
         5000 per metre) through the pipeline; returns its state."""
         ts = float(timestamp) if timestamp is not None else float(self._frame_id)
+        self.tracer.count("sync")
         with self.timers.stage("ingest"):
             pyr = self._ingest_pyramid(image)
         depth_dev = None if depth is None else self._ingest_depth(depth)
@@ -757,9 +780,19 @@ class SlamSystem:
                                      self.config.tracker.bootstrap_anchor_frames)
         else:
             state = self._track_frame(pyr, ts, depth_dev, cur_feats)
-        self.trajectory.append(state)
+        self._record(state)
         self._frame_id += 1
         self._retire_window_ba()   # nothing happens until a dispatched solve is ready
+        return state
+
+    def _record(self, state: FrameState) -> FrameState:
+        """Append a frame's state to the trajectory and count it (lost,
+        relocalized, keyframes)."""
+        self.trajectory.append(state)
+        if state.status != "ok":
+            self.tracer.count(state.status)
+        if state.is_keyframe:
+            self.tracer.count("keyframes")
         return state
 
     def _is_lost(self, inliers, capacity, track_error, pose_finite, T_wc_np) -> bool:
@@ -957,40 +990,57 @@ class SlamSystem:
         c = np.clip((np.trace(D[:3, :3]) - 1.0) * 0.5, -1.0, 1.0)
         return np.asarray([t[0], t[1], t[2], float(np.arccos(c)), 0.0, 0.0], np.float32)
 
+    @staticmethod
+    def _pose_and_diag(out, prev_pts, T_wc, T_ref, corr, clock: StageClock):
+        """The speculative pose chain and the diagnostics row (PIPE_DIAG
+        floats, then room for the stage times that `clock`'s last stamp
+        writes) of a megastep -> (T_rel, T_wc_new, diag)."""
+        T_rel = out.T[0]
+        T_wc_in = se3.compose(corr, T_wc)
+        T_wc_new = se3.normalize(se3.compose(T_wc_in, se3.inverse(T_rel)))
+        tail = clock.tail()
+        diag = torch.cat([
+            torch.stack([
+                out.inliers[0].float(), prev_pts.valid.sum().float(),
+                out.error[0].float(), torch.isfinite(T_rel).all().float(),
+            ]),
+            T_wc_new.reshape(-1),
+            se3.log(se3.compose(se3.inverse(T_ref), T_wc_new)),
+            *(() if tail is None else (tail,)),
+        ])
+        return T_rel, T_wc_new, diag
+
     def _build_step_plain(self):
         """The whole steady-state frame as one function of tensors, `step(img,
         prev_pyr, prev_pts, T_init, T_wc, T_ref, corr) -> (pyr, pts, T_rel,
         T_wc_new, diag)`: convert, rectify, crop, pyramid (K1), coarse-to-fine
         LM tracking (K3, K2, lm_evaluate), the speculative pose chain, the
-        26-float diagnostics (inliers, point capacity, error, finiteness,
-        T_wc_new, log(T_ref^-1 T_wc_new)) and the next frame's top-K points.
-        Nothing in it reads the device, so a CUDA graph can hold it."""
+        diagnostics (`_pose_and_diag`) and the next frame's top-K points, with
+        a device clock stamp (`ops.stamp`) before and after each of those
+        stages (PLAIN_STAGES) on a CUDA device. Nothing in it reads the
+        device, so a CUDA graph can hold it."""
         cam = self.cam
         tcfg = self.config.tracker
 
         def step(img, prev_pyr, prev_pts, T_init, T_wc, T_ref, corr):
+            clock = StageClock(PLAIN_STAGES, img.device)
+            clock.mark()
             pyr = self._ingest_pyramid(img)
+            clock.mark()
             out = track(
                 prev_pyr, pyr, prev_pts, cam, T_init=T_init[None],
                 levels=tcfg.track_levels, max_iters=tcfg.max_iterations,
                 weight_kind=tcfg.weight_kind, mode=tcfg.track_mode,
                 affine=tcfg.affine_brightness,
             )
-            T_rel = out.T[0]
-            T_wc_in = se3.compose(corr, T_wc)
-            T_wc_new = se3.normalize(se3.compose(T_wc_in, se3.inverse(T_rel)))
-            diag = torch.cat([
-                torch.stack([
-                    out.inliers[0].float(), prev_pts.valid.sum().float(),
-                    out.error[0].float(), torch.isfinite(T_rel).all().float(),
-                ]),
-                T_wc_new.reshape(-1),
-                se3.log(se3.compose(se3.inverse(T_ref), T_wc_new)),
-            ])
+            clock.mark()
+            T_rel, T_wc_new, diag = self._pose_and_diag(out, prev_pts, T_wc, T_ref, corr, clock)
+            clock.mark()
             pts = topk_gradient_points(
                 pyr.images[0], pyr.grad_mag[0], cam, num_points=tcfg.num_points,
                 mono_z=tcfg.mono_depth, block=tcfg.point_block,
             )
+            clock.mark(diag[PIPE_DIAG:])
             return pyr, pts, T_rel, T_wc_new, diag
 
         return step
@@ -1000,7 +1050,8 @@ class SlamSystem:
         of tensors: the stages of the plain step plus feature detection and
         description (K3), previous -> current matching with F-RANSAC, the
         fused refresh of the depth prior (K3 on the frame's texels) and the
-        next frame's points at the new prior's depths. `step(img, prev_pyr,
+        next frame's points at the new prior's depths, stamped at each stage
+        boundary (BOOT_STAGES) on a CUDA device. `step(img, prev_pyr,
         prev_pts, prev_kp_uv, prev_desc, prev_kp_valid, prior, T_init, T_wc,
         T_ref, corr, uniforms) -> (pyr, kps, desc, T_rel, T_wc_new, prior_new,
         kp_depth, pts, diag)`. The RANSAC samples come from `uniforms`,
@@ -1012,39 +1063,48 @@ class SlamSystem:
 
         def step(img, prev_pyr, prev_pts, prev_kp_uv, prev_desc, prev_kp_valid, prior,
                  T_init, T_wc, T_ref, corr, uniforms):
+            clock = StageClock(BOOT_STAGES, img.device)
+            clock.mark()
             pyr = self._ingest_pyramid(img)
+            clock.mark()
             kps, desc = self._detect_features(pyr)
+            clock.mark()
             uv_a, uv_b, good, _, idx_b = self._match_features(
                 prev_kp_uv, prev_desc, prev_kp_valid, kps.uv, desc, kps.valid, uniforms
             )
+            clock.mark()
             out = track(
                 prev_pyr, pyr, prev_pts, cam, T_init=T_init[None],
                 levels=tcfg.track_levels, max_iters=tcfg.max_iterations,
                 weight_kind=tcfg.weight_kind, mode=tcfg.track_mode,
                 affine=tcfg.affine_brightness,
             )
-            T_rel = out.T[0]
-            T_wc_in = se3.compose(corr, T_wc)
-            T_wc_new = se3.normalize(se3.compose(T_wc_in, se3.inverse(T_rel)))
-            diag = torch.cat([
-                torch.stack([
-                    out.inliers[0].float(), prev_pts.valid.sum().float(),
-                    out.error[0].float(), torch.isfinite(T_rel).all().float(),
-                ]),
-                T_wc_new.reshape(-1),
-                se3.log(se3.compose(se3.inverse(T_ref), T_wc_new)),
-            ])
+            clock.mark()
+            T_rel, T_wc_new, diag = self._pose_and_diag(out, prev_pts, T_wc, T_ref, corr, clock)
+            clock.mark()
             prior_new, kp_depth = _fused_prior_update(
                 prior, T_rel, None, prev_pts, pyr.images[0], pyr.grad_x[0], pyr.grad_y[0],
                 uv_a, uv_b, good, idx_b, cam=cam, blk=tcfg.bootstrap_block, cap=cap,
             )
+            clock.mark()
             pts = topk_gradient_points(
                 pyr.images[0], pyr.grad_mag[0], cam, num_points=tcfg.num_points,
                 mono_z=tcfg.mono_depth, block=tcfg.point_block,
             )
             pts = self._prior_depths(prior_new, pts)
+            clock.mark(diag[PIPE_DIAG:])
             return pyr, kps, desc, T_rel, T_wc_new, prior_new, kp_depth, pts, diag
 
+        return step
+
+    def _graph(self, key: tuple, fn, inputs) -> CapturedStep:
+        """The CUDA graph of `fn` kept under `key`, captured on `inputs` at
+        its first use (span `capture`, counter `captures`)."""
+        step = self._steps.get(key)
+        if step is None:
+            with self.tracer.span("capture"):
+                step = self._steps[key] = CapturedStep(fn, inputs)
+            self.tracer.count("captures")
         return step
 
     def _run_step(self, kind: str, *inputs):
@@ -1053,14 +1113,15 @@ class SlamSystem:
         frame dtype and shape at its first use. The replay's outputs are
         cloned: the next replay overwrites the graph's own, while a frame's
         pyramid and points live on until its retirement (and as the next
-        frame's inputs)."""
+        frame's inputs). Span `replay`: the step (the inputs' copy-in, the
+        replay and the clones)."""
         build = self._build_step_boot if kind == "boot" else self._build_step_plain
         if self.device.type == "cpu":
-            return build()(*inputs)
-        key = (kind, inputs[0].dtype, tuple(inputs[0].shape))
-        if key not in self._steps:
-            self._steps[key] = CapturedStep(build(), inputs)
-        return tree_clone(self._steps[key](*inputs))
+            with self.tracer.span("replay"):
+                return build()(*inputs)
+        step = self._graph((kind, inputs[0].dtype, tuple(inputs[0].shape)), build(), inputs)
+        with self.tracer.span("replay"):
+            return tree_clone(step(*inputs))
 
     @property
     def graph_replays(self) -> int:
@@ -1093,28 +1154,36 @@ class SlamSystem:
 
         Diagnostics are read `_pipe_batch` (4) frames at a time and a batch
         is staged one call ahead, so a frame's FrameState, and the keyframe
-        decision with it, lands 5 to 9 frames after its dispatch. Use
+        decision with it, lands 2 to 5 calls after its dispatch, with 6, 5, 4
+        and 3 frames in flight (itself included) as a batch retires. Use
         `process_frame` when keyframe latency matters more than throughput.
-        Call `flush()` after the last frame."""
-        if not self._can_pipeline(depth):
-            self.flush()   # retired states land in self.trajectory
-            self._pipe_broken = False
-            return self.process_frame(image, depth, timestamp)
-        ts = float(timestamp) if timestamp is not None else float(self._frame_id)
-        self._pipelined = True
-        try:
-            self._pipe_queue.append(self._dispatch_pipelined(image, ts))
-            state = self._retire_ready()
-            # A window solve that has finished lands here; one that has not
-            # is left alone: the loop never waits for it.
-            self._retire_window_ba()
-            if self._pipe_ready is None and len(self._pipe_queue) > self._pipe_batch:
-                recs = self._pipe_queue[: self._pipe_batch]
-                del self._pipe_queue[: self._pipe_batch]
-                self._pipe_ready = (*self._stage_diags(recs), recs)
-            return state
-        finally:
-            self._pipelined = False
+        Call `flush()` after the last frame.
+
+        Host spans (`self.tracer`): `frame` (the call), and inside it
+        `dispatch` (with `capture` and `replay`), `retire_wait` (the wait on
+        the batch's event), `retire` per frame retired (with `keyframe` and
+        `relocalize`) and `stage_diags`."""
+        with self.tracer.span("frame"):
+            if not self._can_pipeline(depth):
+                self.flush()   # retired states land in self.trajectory
+                self._pipe_broken = False
+                return self.process_frame(image, depth, timestamp)
+            ts = float(timestamp) if timestamp is not None else float(self._frame_id)
+            self._pipelined = True
+            try:
+                self._pipe_queue.append(self._dispatch_pipelined(image, ts))
+                state = self._retire_ready()
+                # A window solve that has finished lands here; one that has
+                # not is left alone: the loop never waits for it.
+                self._retire_window_ba()
+                if self._pipe_ready is None and len(self._pipe_queue) > self._pipe_batch:
+                    recs = self._pipe_queue[: self._pipe_batch]
+                    del self._pipe_queue[: self._pipe_batch]
+                    with self.tracer.span("stage_diags"):
+                        self._pipe_ready = (*self._stage_diags(recs), recs)
+                return state
+            finally:
+                self._pipelined = False
 
     def _stage_diags(self, recs):
         """Stack the records' diagnostics and start their transfer to pinned
@@ -1135,8 +1204,9 @@ class SlamSystem:
             return None
         rows, event, recs = self._pipe_ready
         self._pipe_ready = None
-        if event is not None:
-            event.synchronize()
+        with self.tracer.span("retire_wait"):
+            if event is not None:
+                event.synchronize()
         rows = rows.numpy()
         state = None
         for k, rec in enumerate(recs):
@@ -1144,64 +1214,87 @@ class SlamSystem:
         return state
 
     def _dispatch_pipelined(self, image, ts: float) -> dict:
-        if np.allclose(self._corr_pending, np.eye(4)):
-            corr = self._eye
-        else:
-            corr = torch.from_numpy(self._corr_pending).to(self.device)
-        self._corr_pending = np.eye(4, dtype=np.float32)
-        prev_pyr, prev_pts, _ = self._prev
-        T_ref = self.keyframes.latest.T_wc
-        feats = kp_depth = prior_new = None
-        if not self.config.use_features:
-            pyr, pts, T_rel, T_wc_new, diag = self._run_step(
-                "plain", self._to_device(image), prev_pyr, prev_pts, self._velocity,
-                self._T_wc, T_ref, corr,
-            )
-        else:
-            kp_prev, desc_prev = self._prev_feats
-            (pyr, kps, desc, T_rel, T_wc_new, prior_new, kp_depth, pts, diag) = self._run_step(
-                "boot", self._to_device(image), prev_pyr, prev_pts,
-                kp_prev.uv, desc_prev, kp_prev.valid, self._depth_prior,
-                self._velocity, self._T_wc, T_ref, corr,
-                self._ransac_uniforms(desc_prev.shape[0], self._frame_id),
-            )
-            feats = (kps, desc)
-            self._depth_prior = prior_new
-            self._kp_depth = kp_depth
-        # Advance the device-side chain speculatively (status "ok").
-        self._velocity = T_rel
-        self._T_wc = T_wc_new
-        self._prev = (pyr, pts, None)
-        self._prev_feats = feats
-        rec = {
-            "frame_id": self._frame_id, "ts": ts, "diag": diag, "pyr": pyr, "pts": pts,
-            "feats": feats, "kp_depth": kp_depth, "prior": prior_new,
-            "corr_at_dispatch": self._corr_accum.copy(),
-            "ref_kf_id": self.keyframes.latest.frame_id,
-        }
-        self._frame_id += 1
-        return rec
+        with self.tracer.span("dispatch"):
+            if np.allclose(self._corr_pending, np.eye(4)):
+                corr = self._eye
+            else:
+                corr = torch.from_numpy(self._corr_pending).to(self.device)
+            self._corr_pending = np.eye(4, dtype=np.float32)
+            prev_pyr, prev_pts, _ = self._prev
+            T_ref = self.keyframes.latest.T_wc
+            feats = kp_depth = prior_new = None
+            if not self.config.use_features:
+                pyr, pts, T_rel, T_wc_new, diag = self._run_step(
+                    "plain", self._to_device(image), prev_pyr, prev_pts, self._velocity,
+                    self._T_wc, T_ref, corr,
+                )
+            else:
+                kp_prev, desc_prev = self._prev_feats
+                (pyr, kps, desc, T_rel, T_wc_new, prior_new, kp_depth, pts,
+                 diag) = self._run_step(
+                    "boot", self._to_device(image), prev_pyr, prev_pts,
+                    kp_prev.uv, desc_prev, kp_prev.valid, self._depth_prior,
+                    self._velocity, self._T_wc, T_ref, corr,
+                    self._ransac_uniforms(desc_prev.shape[0], self._frame_id),
+                )
+                feats = (kps, desc)
+                self._depth_prior = prior_new
+                self._kp_depth = kp_depth
+            # Advance the device-side chain speculatively (status "ok").
+            self._velocity = T_rel
+            self._T_wc = T_wc_new
+            self._prev = (pyr, pts, None)
+            self._prev_feats = feats
+            rec = {
+                "frame_id": self._frame_id, "ts": ts, "diag": diag, "pyr": pyr, "pts": pts,
+                "feats": feats, "kp_depth": kp_depth, "prior": prior_new,
+                "corr_at_dispatch": self._corr_accum.copy(),
+                "ref_kf_id": self.keyframes.latest.frame_id,
+            }
+            self._frame_id += 1
+            self.tracer.count("dispatched")
+            return rec
 
     def _retire_pipelined(self, rec=None, diag_row=None) -> FrameState:
-        """Host bookkeeping for one in-flight frame: failure gate, keyframe
-        policy (a few frames late by construction), trajectory append."""
+        """Host bookkeeping for one in-flight frame (span `retire`): failure
+        gate, keyframe policy (a few frames late by construction), trajectory
+        append. The state carries the frames in flight and, on a CUDA device,
+        its megastep's stage times."""
         if rec is None:
             rec = self._pipe_queue.pop(0)
+        in_flight = self.tracer.counts["dispatched"] - self.tracer.counts["retired"]
+        self.tracer.count("retired")
+        with self.tracer.span("retire"):
+            state = self._retire_frame(rec, diag_row)
+            state.in_flight = in_flight
+            if state.step_ms is not None:
+                self.tracer.add_step_ms(state.step_ms)
+            return self._record(state)
+
+    def _step_ms(self, diag) -> dict[str, float] | None:
+        """The stage times that a megastep's last stamp wrote after its
+        diagnostics, by stage; None where the row has none (a CPU device)."""
+        if len(diag) <= PIPE_DIAG:
+            return None
+        stages = BOOT_STAGES if self.config.use_features else PLAIN_STAGES
+        return dict(zip(stages, diag[PIPE_DIAG:].tolist()))
+
+    def _retire_frame(self, rec, diag_row) -> FrameState:
         ref_kf = self.keyframes.latest
         kf_pose = np.asarray(self._kf_poses[ref_kf.frame_id], np.float32)
         if self._pipe_broken:
             # Dispatched on a chain that later proved lost: coast on the
             # recovered pose, ignore the diagnostics.
             T_wc_np = self._T_wc.cpu().numpy()
-            state = FrameState(
+            return FrameState(
                 frame_id=rec["frame_id"], timestamp=rec["ts"], T_wc=T_wc_np,
                 tracked_inliers=0, track_error=float("nan"), is_keyframe=False,
                 ref_kf_id=ref_kf.frame_id,
                 T_kf_frame=self._np_inv_se3(kf_pose) @ T_wc_np, status="lost",
+                step_ms=None if diag_row is None else self._step_ms(diag_row),
             )
-            self.trajectory.append(state)
-            return state
         diag = diag_row if diag_row is not None else rec["diag"].cpu().numpy()
+        step_ms = self._step_ms(diag)
         inliers = int(diag[0])
         capacity = int(diag[1])
         track_error = float(diag[2])
@@ -1221,7 +1314,8 @@ class SlamSystem:
             self._pipe_broken = True
             self._depth_prior = self._kp_depth = self._boot_anchor = None
             status = "lost"
-            reloc = self._relocalize(rec["pyr"], rec["feats"])
+            with self.tracer.span("relocalize"):
+                reloc = self._relocalize(rec["pyr"], rec["feats"])
             if reloc is not None:
                 T_wc_np = reloc[0].cpu().numpy()
                 status = "relocalized"
@@ -1234,14 +1328,13 @@ class SlamSystem:
                 )
             self._T_wc = torch.from_numpy(T_wc_np).to(self.device)
             self._velocity = self._eye
-            state = FrameState(
+            return FrameState(
                 frame_id=rec["frame_id"], timestamp=rec["ts"], T_wc=T_wc_np,
                 tracked_inliers=inliers, track_error=track_error, is_keyframe=False,
                 ref_kf_id=ref_kf.frame_id,
                 T_kf_frame=self._np_inv_se3(kf_pose) @ T_wc_np, status=status,
+                step_ms=step_ms,
             )
-            self.trajectory.append(state)
-            return state
 
         # If a keyframe landed while this frame was in flight, the
         # diagnostics' motion relative to the keyframe is stale.
@@ -1250,52 +1343,51 @@ class SlamSystem:
         is_kf = self.keyframes.should_insert(rec["frame_id"], T_wc_np, ratio,
                                              rel_log=rel_kf_log)
         if is_kf:
-            # Keyframe creation (and its depth reads) must see THIS frame,
-            # not the chain head.
-            saved = (self._T_wc, self._frame_id, self._kp_depth, self._depth_prior)
-            self._T_wc = torch.from_numpy(T_wc_np).to(self.device)
-            self._frame_id = rec["frame_id"]
-            if rec["kp_depth"] is not None:
-                self._kp_depth = rec["kp_depth"]
-            if rec["prior"] is not None:
-                self._depth_prior = rec["prior"]
-            t0 = time.perf_counter()
-            kf = self._make_keyframe(rec["ts"], rec["pyr"], rec["pts"], rec["feats"])
-            self.retire_host_s["make_keyframe"] += time.perf_counter() - t0
-            self._T_wc, self._frame_id, self._kp_depth, self._depth_prior = saved
-            prev_kf = self.keyframes.latest
-            self.keyframes.insert(kf)
-            self._kf_poses[kf.frame_id] = T_wc_np.copy()
-            self._on_new_keyframe(kf)
-            self._window_ba_on_keyframe(prev_kf, kf)
+            with self.tracer.span("keyframe"):
+                # Keyframe creation (and its depth reads) must see THIS
+                # frame, not the chain head.
+                saved = (self._T_wc, self._frame_id, self._kp_depth, self._depth_prior)
+                self._T_wc = torch.from_numpy(T_wc_np).to(self.device)
+                self._frame_id = rec["frame_id"]
+                if rec["kp_depth"] is not None:
+                    self._kp_depth = rec["kp_depth"]
+                if rec["prior"] is not None:
+                    self._depth_prior = rec["prior"]
+                with self.tracer.span("make_keyframe"):
+                    kf = self._make_keyframe(rec["ts"], rec["pyr"], rec["pts"], rec["feats"])
+                self._T_wc, self._frame_id, self._kp_depth, self._depth_prior = saved
+                prev_kf = self.keyframes.latest
+                self.keyframes.insert(kf)
+                self._kf_poses[kf.frame_id] = T_wc_np.copy()
+                self._on_new_keyframe(kf)
+                self._window_ba_on_keyframe(prev_kf, kf)
             ref_kf = self.keyframes.latest
             kf_pose = self._kf_poses[ref_kf.frame_id]
-        state = FrameState(
+        return FrameState(
             frame_id=rec["frame_id"], timestamp=rec["ts"], T_wc=T_wc_np,
             tracked_inliers=inliers, track_error=track_error, is_keyframe=is_kf,
             ref_kf_id=ref_kf.frame_id,
-            T_kf_frame=self._np_inv_se3(kf_pose) @ T_wc_np, status="ok",
+            T_kf_frame=self._np_inv_se3(kf_pose) @ T_wc_np, status="ok", step_ms=step_ms,
         )
-        self.trajectory.append(state)
-        return state
 
     def flush(self) -> FrameState | None:
         """Retire every in-flight frame (after the last frame, or before a
-        frame that takes the synchronous path)."""
-        if not self._pipe_queue and self._pipe_ready is None:
-            self._retire_window_ba(wait=True)
-            self._drain_pending_correction()
-            return None
-        self._pipelined = True
-        try:
-            state = self._retire_ready()
-            while self._pipe_queue:
-                state = self._retire_pipelined()
-            self._retire_window_ba(wait=True)
-            return state
-        finally:
-            self._pipelined = False
-            self._drain_pending_correction()
+        frame that takes the synchronous path). Span `flush`."""
+        with self.tracer.span("flush"):
+            if not self._pipe_queue and self._pipe_ready is None:
+                self._retire_window_ba(wait=True)
+                self._drain_pending_correction()
+                return None
+            self._pipelined = True
+            try:
+                state = self._retire_ready()
+                while self._pipe_queue:
+                    state = self._retire_pipelined()
+                self._retire_window_ba(wait=True)
+                return state
+            finally:
+                self._pipelined = False
+                self._drain_pending_correction()
 
     def _drain_pending_correction(self) -> None:
         if not np.allclose(self._corr_pending, np.eye(4)):
@@ -1348,10 +1440,8 @@ class SlamSystem:
     def _match_step(self, inputs) -> CapturedStep:
         """The keyframe match captured for these keypoint capacities (the
         caller is on the solves' stream)."""
-        key = ("match", inputs[1].shape[0], inputs[4].shape[0])
-        if key not in self._steps:
-            self._steps[key] = CapturedStep(self._keyframe_match_table, inputs)
-        return self._steps[key]
+        return self._graph(("match", inputs[1].shape[0], inputs[4].shape[0]),
+                           self._keyframe_match_table, inputs)
 
     def _dispatch_keyframe_match(self, prev_kf, kf, window) -> dict:
         """Start the match of two keyframes' features. On a CUDA device it is
@@ -1359,27 +1449,27 @@ class SlamSystem:
         stream (the keyframes' descriptors are written there), and the table
         goes to pinned memory with an event behind it; on the CPU it is
         computed here. `window` is the window a solve due at `kf` works on."""
-        t0 = time.perf_counter()
-        feats = (prev_kf.kp_uv, prev_kf.kp_desc, prev_kf.kp_valid,
-                 kf.kp_uv, kf.kp_desc, kf.kp_valid)
-        event = None
-        if self.device.type == "cpu":
-            table = self._keyframe_match_table(
-                *feats, self._ransac_uniforms(prev_kf.kp_desc.shape[0], kf.frame_id))
-        else:
-            ready = torch.cuda.Event()
-            ready.record()
-            with torch.cuda.stream(self._ba_stream):
-                self._ba_stream.wait_event(ready)
-                for t in feats:
-                    t.record_stream(self._ba_stream)
-                inputs = (*feats, self._ransac_uniforms(prev_kf.kp_desc.shape[0], kf.frame_id))
-                on_card = self._match_step(inputs)(*inputs)
-                table = torch.empty(on_card.shape, dtype=on_card.dtype, pin_memory=True)
-                table.copy_(on_card, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-        self.retire_host_s["match_dispatch"] += time.perf_counter() - t0
+        with self.tracer.span("match_dispatch"):
+            feats = (prev_kf.kp_uv, prev_kf.kp_desc, prev_kf.kp_valid,
+                     kf.kp_uv, kf.kp_desc, kf.kp_valid)
+            event = None
+            if self.device.type == "cpu":
+                table = self._keyframe_match_table(
+                    *feats, self._ransac_uniforms(prev_kf.kp_desc.shape[0], kf.frame_id))
+            else:
+                ready = torch.cuda.Event()
+                ready.record()
+                with torch.cuda.stream(self._ba_stream):
+                    self._ba_stream.wait_event(ready)
+                    for t in feats:
+                        t.record_stream(self._ba_stream)
+                    inputs = (*feats,
+                              self._ransac_uniforms(prev_kf.kp_desc.shape[0], kf.frame_id))
+                    on_card = self._match_step(inputs)(*inputs)
+                    table = torch.empty(on_card.shape, dtype=on_card.dtype, pin_memory=True)
+                    table.copy_(on_card, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
         return {"ids": (prev_kf.frame_id, kf.frame_id), "table": table, "event": event,
                 "window": window}
 
@@ -1393,17 +1483,15 @@ class SlamSystem:
         if rec["event"] is not None:
             if not wait and not rec["event"].query():
                 return
-            t0 = time.perf_counter()
-            rec["event"].synchronize()
-            self.retire_host_s["match_wait"] += time.perf_counter() - t0
+            with self.tracer.span("match_wait"):
+                rec["event"].synchronize()
         self._match_inflight = None
-        t0 = time.perf_counter()
-        table = rec["table"].numpy()
-        self._tracks.add_keyframe_matches(
-            *rec["ids"], table[:, 0].astype(np.int64), table[:, 1].astype(np.int64),
-            table[:, 2:4], table[:, 4:6], table[:, 6] > 0.5,
-        )
-        self.retire_host_s["add_keyframe_matches"] += time.perf_counter() - t0
+        with self.tracer.span("add_keyframe_matches"):
+            table = rec["table"].numpy()
+            self._tracks.add_keyframe_matches(
+                *rec["ids"], table[:, 0].astype(np.int64), table[:, 1].astype(np.int64),
+                table[:, 2:4], table[:, 4:6], table[:, 6] > 0.5,
+            )
         if rec["window"] is not None:
             self._run_window_ba(rec["window"])
 
@@ -1442,10 +1530,8 @@ class SlamSystem:
     def _window_step(self, problem: BAProblem) -> CapturedStep:
         """The window solve captured for this problem's shape (the caller is
         on the solves' stream)."""
-        key = ("ba", tuple(problem.obs_uv.shape), tuple(problem.points.shape))
-        if key not in self._steps:
-            self._steps[key] = CapturedStep(self._solve_window, tuple(problem))
-        return self._steps[key]
+        return self._graph(("ba", tuple(problem.obs_uv.shape), tuple(problem.points.shape)),
+                           self._solve_window, tuple(problem))
 
     def _warm_window_ba(self, kf) -> None:
         """Capture what the window BA runs before the loop needs it, on inputs
@@ -1509,18 +1595,18 @@ class SlamSystem:
             return
         kf_ids, poses = window
         t0 = time.perf_counter()
-        self._tracks.prune_outside_window(set(kf_ids))
-        T_cw = np.stack([self._np_inv_se3(poses[fid]) for fid in kf_ids])
         bcfg = self.config.ba
-        built = self._tracks.build_problem(
-            kf_ids, T_cw, self.cam,
-            max_landmarks=min(bcfg.landmark_capacity, 1024),
-            max_obs=min(bcfg.obs_capacity, 8192),
-            # One pose count for every window size: the padding poses carry
-            # no observations and the pose prior pins them.
-            max_poses=self.keyframes.capacity,
-        )
-        self.retire_host_s["build_problem"] += time.perf_counter() - t0
+        with self.tracer.span("build_problem"):
+            self._tracks.prune_outside_window(set(kf_ids))
+            T_cw = np.stack([self._np_inv_se3(poses[fid]) for fid in kf_ids])
+            built = self._tracks.build_problem(
+                kf_ids, T_cw, self.cam,
+                max_landmarks=min(bcfg.landmark_capacity, 1024),
+                max_obs=min(bcfg.obs_capacity, 8192),
+                # One pose count for every window size: the padding poses
+                # carry no observations and the pose prior pins them.
+                max_poses=self.keyframes.capacity,
+            )
         if built is None:
             return
         problem = built[0]
@@ -1641,10 +1727,8 @@ class SlamSystem:
 
     def _photo_step(self, problem: PhotoBAProblem, active) -> CapturedStep:
         """The photometric solve captured for this window's shape."""
-        key = ("photo", *problem.images.shape, problem.uv.shape[1])
-        if key not in self._steps:
-            self._steps[key] = CapturedStep(self._solve_photo_window, (*problem, active))
-        return self._steps[key]
+        return self._graph(("photo", *problem.images.shape, problem.uv.shape[1]),
+                           self._solve_photo_window, (*problem, active))
 
     def _run_window_photo_ba(self) -> None:
         """Direct photometric window BA over the keyframe pyramids (the cost
