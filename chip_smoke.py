@@ -20,8 +20,13 @@ fails. Phases, one line each:
    Huber and none, the pose alone and with an affine brightness (a, b) from
    a seed) at every track level on the same points: valid counts
    equal, every sum within LM_SUM_RTOL of the pair's scale, H symmetric,
-   the padding zero, two launches bit-equal. The pyramid kernel, K1, K2 and K3 must equal their plain
-   versions bit for bit.
+   the padding zero, two launches bit-equal; and the LM update after it,
+   `lm_step` (IC, Huber, the pose alone and with the brightness), against
+   the plain step over a level's init and 10 iterations on the real sums
+   and state: integer and boolean fields, error, damping and best sums
+   equal, poses and brightness within LM_STEP_RTOL of their scale. The
+   pyramid kernel, K1, K2 and K3 must equal their plain versions bit for
+   bit.
 4. The main path: the repo's bench.py sequence (96 frames of 640 x 480)
    rendered on the card and tracked by SequenceTracker in IC mode. Every
    kernel of the path must have launched (the pyramid once); the
@@ -31,14 +36,15 @@ fails. Phases, one line each:
    events), the device's busy time and launches in one profiled chunk, and
    each kernel against its plain version, in device time (profiler; CUDA
    events where a profile, taken up to three times, records no kernel) and
-   in wall time per call (CUDA events); `lm_evaluate` also with affine
-   brightness.
+   in wall time per call (CUDA events); `lm_evaluate` and `lm_step` also
+   with affine brightness (`lm_step` on its first iteration's sums and
+   state from the chunk's poses, B = 95).
 3b. The live path's kernel shapes at B = 1: the pyramid kernel on one
    frame at 3 levels (480 x 640, 240 x 320, 120 x 160) and K1 alone on each
    level, K2 with C = 1 and with C = 3 texels
-   (intensity and both gradients) and `lm_evaluate` (FC, on the texels; the
-   pose alone and with affine brightness) at
-   levels 1 and 0, and K3 with C = 1 at the descriptor shape (768 keypoints
+   (intensity and both gradients), `lm_evaluate` and `lm_step` (FC, on the
+   texels; the pose alone and with affine brightness: config 1's and config
+   2's update) at levels 1 and 0, and K3 with C = 1 at the descriptor shape (768 keypoints
    x 64 taps per level), each against its plain version as in phase 3.
 3c. eval.py's rectified EUROC shape (1 x 480 x 736): the pyramid kernel at 5
    levels against the plain pyramid, and `lm_evaluate` (FC, one pair, 2048
@@ -66,7 +72,8 @@ fails. Phases, one line each:
 9. Live timing: frames/s and per-frame latency (median, p90; CUDA events
    in phase 6's run) after 15 warm-up frames, and device busy ms, idle
    share, kernel launches and the costliest operators per frame from the
-   profiler over 5 frames.
+   profiler over 5 frames; each kernel against its plain version at
+   phase 3b's shapes, `lm_step` and `lm_step_affine` among them.
 
 10. Depth images: K3 with C = 1 on a TUM-encoded depth image (uint16, 5000
    per metre, with holes, a depth step and last-column points) against its
@@ -232,20 +239,21 @@ fails. Phases, one line each:
    each kernel's launches per config; eval.py's health checks that every
    JAX CLI run of those frames passes are asserted, those one fails too
    printed beside their figures; the pyramid kernel, `lm_evaluate` and K3
-   launched, and `lm_evaluate` in each of the affine configs 2 and 3 (their
-   K2 and `lm_evaluate` launches printed).
+   launched, and `lm_evaluate` and `lm_step` in each of the affine configs
+   2 and 3 (their K2, `lm_evaluate` and `lm_step` launches printed).
 25. The measuring tools at their full design points, in a process of
    their own (see `phase_tools_fresh`), with reduced repetitions (1 timed
    call per budget stage, 1 profiled attribution chunk, 1 solve per shard
    count): (a)
    `uwslam_tpu_torch.offline_budget` on the bench chunk (the stages' device
    busy times, pyramid + selection + all track levels, within 3% of the
-   whole chunk's; the pyramid stage one launch; the chunk's launches 11,090,
+   whole chunk's; the pyramid stage one launch; the chunk's launches 510,
    of which a profile may lose up to 3 records; its ATE within 1 mm); (b)
    `attribute_trace` (the rows, the rows under the threshold
    and the unattributed time equal the profiler's kernel time within 1%, at
-   most 2% unattributed; the pyramid kernel, K2, K3 and `lm_evaluate` by
-   name under their wrappers' files with 1 / 5 / 3 / 32 launches per chunk, as the wrappers
+   most 2% unattributed; the pyramid kernel, K2, K3, `lm_evaluate` and
+   `lm_step` by name under their wrappers' files with 1 / 5 / 3 / 32 / 32
+   launches per chunk, as the wrappers
    count them, the attribution taken again up to 3 times where a profile comes back short
    of a hand-written kernel's record); (c) `scaling` with one solve per shard count (every row 30
    iterations, finite, the final cost within 1e-3 relative across a curve's
@@ -265,8 +273,8 @@ and each phase-24 config's path, and K3's per photometric shard count;
 time, plain version's
 time, the card's bound for the same bytes and operations, and a library
 call's time where one computes the same function; `lm_evaluate`'s also
-with affine brightness at the offline, live and EUROC shapes, `_affine`
-keys), the card's name and power limit, and, last,
+with affine brightness at the offline, live and EUROC shapes, `lm_step`'s
+at the offline and live shapes, `_affine` keys), the card's name and power limit, and, last,
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -294,11 +302,13 @@ from uwslam_tpu_torch.micro import (  # the card's bound and the kernels' operat
     TAPS_FLOPS,
     bound,
     bound_lm_evaluate,
+    bound_lm_step,
     bound_sampler,
     bound_pyramid,
     bound_scharr,
     brightness,
     grid_sample_call,
+    lm_step_pair,
     scharr_conv_call,
     warm_profile,
 )
@@ -314,12 +324,21 @@ SAMPLE_ATOL = 0.0    # K2/K3, planar and texels: bit-equal, masks equal
 # fraction of the pair's scale for it (H: its largest entry; b: its
 # Cauchy-Schwarz bound sqrt(2 max|H| cost); cost and sum |r|: themselves).
 LM_SUM_RTOL = 2e-5
+# lm_step against the plain step on the same state and sums: the integer and
+# boolean fields, the error, the damping and the best sums exact (the kernel
+# forms err and the accept test as the plain version does); poses and
+# brightness within this fraction of each entry's scale (at least 1), since
+# the plain version's matmuls and sin / cos round otherwise.
+LM_STEP_RTOL = 2e-6
+LM_STEP_ITERS, LM_STEP_EPS, LM_STEP_LAMBDA = 10, 1e-4, 1e-4   # `lm_level`'s defaults
 # K3's interior against grid_sample(align_corners=True), which goes through
 # normalized coordinates: u is recovered to ~W eps = 4e-5 px, times a
 # gradient of up to ~100 gray levels per pixel.
 GRID_SAMPLE_ATOL = 2e-2
-MAX_LAUNCHES_PER_CHUNK = 12295   # the unfused LM loop's count; must fall
-MAX_LAUNCHES_PER_FRAME = 9403
+# Kernel launches per offline chunk and per synchronous live frame stay below these:
+# 510 and 397 with one lm_evaluate and one lm_step launch per LM iteration.
+MAX_LAUNCHES_PER_CHUNK = 600
+MAX_LAUNCHES_PER_FRAME = 500
 T_REL_ATOL = 1e-3    # se3.log of the card's vs the CPU's relative poses
 ATE_MAX = 1e-3       # m; the JAX package's f32 CPU run gives 0.000278 m
 TIMING_REPS = 20
@@ -360,7 +379,7 @@ PIPE_RELOC_ATE_MAX = 3e-2
 # runs on no path: every path builds its pyramid in one launch.
 KERNEL_SYMBOLS = {"pyramid": "pyramid_kernel", "warp_sample": "warp_sample_kernel",
                   "bilinear_sample": "bilinear_sample_kernel",
-                  "lm_evaluate": "lm_evaluate_kernel"}
+                  "lm_evaluate": "lm_evaluate_kernel", "lm_step": "lm_step_kernel"}
 PATH_KERNELS = tuple(KERNEL_SYMBOLS)
 RECT_FRAMES = 32
 RECT_DISTORTION = dict(k1=-0.28, k2=0.07, p1=2e-4, p2=1.8e-5)   # EUROC-like
@@ -693,6 +712,9 @@ def kernels_table():
         {"name": "scharr", "wrapper": ops.scharr_gradients_batched,
          "source": "uwslam_tpu_torch/csrc/pyramid.cu",
          "replaces": "uwslam_tpu/ops/pallas_pyramid.py:26"},
+        {"name": "lm_step", "wrapper": ops.lm_step,
+         "source": "uwslam_tpu_torch/csrc/lm_step.cu",
+         "replaces": "none (the LM update that XLA fuses on the TPU)"},
     ]
 
 
@@ -855,6 +877,91 @@ def check_lm_evaluate(target, pts_l, T, cam_l, what: str, J_ref=None) -> float:
     return worst
 
 
+def lm_step_error(got, want, what: str) -> float:
+    """Max abs error of the kernel's poses and brightness against the plain
+    step's, held to LM_STEP_RTOL; every other field of the two `LMLoop`s
+    must be equal."""
+    for name in ("k", "done", "n_inlier", "error", "lam"):
+        a, b = getattr(got, name), getattr(want, name)
+        if not (a.dtype == b.dtype and torch.equal(a, b)):
+            raise AssertionError(f"{what}: {name} differs from the plain step's")
+    if not torch.equal(got.s_best[0], want.s_best[0]):
+        raise AssertionError(f"{what}: the best sums differ from the plain step's")
+    worst = 0.0
+    for name in ("T", "T_best", "ab", "ab_best"):
+        a, b = getattr(got, name), getattr(want, name)
+        diff = (a - b).abs()
+        if not bool((diff <= LM_STEP_RTOL * b.abs().clamp(min=1.0)).all()):
+            raise AssertionError(f"{what}: {name} differs from the plain step's by "
+                                 f"{float(diff.max())} > {LM_STEP_RTOL} of its scale")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def lm_step_run(evaluator, T0, ab0, what: str) -> tuple[float, tuple]:
+    """A level's LM updates on the card against the plain ones on the real
+    sums and state: `lm_step_init` at (T0, ab0) against `lm_start`, then
+    LM_STEP_ITERS times, at the kernel's candidate, one `lm_step` against
+    the plain step on a copy of the same state and the same sums
+    (`lm_step_error`). -> (max abs error, (state, sums) of the first
+    iteration, for `micro.lm_step_pair`)."""
+    from uwslam_tpu_torch import ops
+    from uwslam_tpu_torch.ops.graph import tree_clone
+    from uwslam_tpu_torch.tracking import photometric
+
+    affine = evaluator.affine
+    first, evaluate, solve = photometric._fused_steps(evaluator, T0, ab0 if affine else None)
+    loop = ops.lm_step_init(first[2][0], T0, ab0, LM_STEP_LAMBDA, affine)
+    want = photometric.lm_start(T0, ab0, first, solve, LM_STEP_LAMBDA, affine)
+    worst = lm_step_error(loop, want, f"{what} init")
+    for i in range(LM_STEP_ITERS):
+        evaluation = evaluate(loop.T, loop.ab)
+        state = tree_clone(loop)
+        if i == 0:
+            timed = (tree_clone(loop), evaluation[2][0].clone())
+        want = photometric.lm_step(state, evaluation, solve, LM_STEP_ITERS, LM_STEP_EPS, affine)
+        ops.lm_step(loop, evaluation[2][0], LM_STEP_ITERS, LM_STEP_EPS)
+        worst = max(worst, lm_step_error(loop, want, f"{what} iteration {i}"))
+    return worst, timed
+
+
+def check_lm_step(target, pts_l, T, cam_l, what: str, J_ref=None) -> float:
+    """`lm_step` (`lm_step_run`; Huber, the pose alone and with an affine
+    brightness (a, b) from `brightness`) from poses T, on the sums of
+    `lm_evaluate` at the scale the main path takes (`lm_scale`)."""
+    from uwslam_tpu_torch import ops
+    from uwslam_tpu_torch.tracking.robust import WeightKind
+
+    worst = 0.0
+    for ab in (None, brightness(T.shape[0], T.device)):
+        sigma, _ = lm_scale(target, pts_l, T, cam_l, J_ref is None, ab)
+        evaluator = ops.LMEvaluator(target, pts_l.p3d, pts_l.intensity, pts_l.valid, sigma,
+                                    cam_l, WeightKind.HUBER, J_ref, affine=ab is not None)
+        ab0 = torch.zeros(T.shape[0], 2, device=T.device) if ab is None else ab
+        form = "affine" if ab is not None else "pose"
+        worst = max(worst, lm_step_run(evaluator, T, ab0, f"{what} {form}")[0])
+    return worst
+
+
+def lm_step_calls(evaluator, evaluator_ab, T, ab, what: str) -> tuple[float, dict, dict]:
+    """`lm_step_run` at `evaluator`'s and `evaluator_ab`'s (when given)
+    shapes from poses T (and brightness ab): (max abs error, what
+    `time_pairs` takes for `lm_step` and `lm_step_affine`: {name: (kernel,
+    plain)}, {name: bound})."""
+    B = T.shape[0]
+    worst, calls, bounds = 0.0, {}, {}
+    forms = (("lm_step", evaluator, torch.zeros(B, 2, device=T.device)),
+             ("lm_step_affine", evaluator_ab, ab))
+    for name, ev, ab0 in forms:
+        if ev is None:
+            continue
+        err, (state, sums) = lm_step_run(ev, T, ab0, f"{name} {what}")
+        worst = max(worst, err)
+        calls[name] = lm_step_pair(state, sums, ev.affine)
+        bounds[name] = bound_lm_step(B, ev.affine)
+    return worst, calls, bounds
+
+
 def check_grid_sample(kernel_out, stack, uv, what: str) -> float:
     """K3 against grid_sample where the two compute the same function: at
     valid points off the last row and column."""
@@ -878,7 +985,7 @@ def phase_parity(pyr, pts, cam, track_levels, seed: int = 0):
 
     dev = pyr.images[0].device
     err = {"warp_sample": 0.0, "bilinear_sample": 0.0,
-           "lm_evaluate": 0.0, "bilinear_sample_vs_grid_sample": 0.0,
+           "lm_evaluate": 0.0, "lm_step": 0.0, "bilinear_sample_vs_grid_sample": 0.0,
            **check_pyramid(pyr, f"{pyr.images[0].shape[0]} frames")}
 
     gen = torch.Generator().manual_seed(seed)
@@ -934,9 +1041,11 @@ def phase_parity(pyr, pts, cam, track_levels, seed: int = 0):
             vals, ref_ok = ops.cuda_bilinear_sample(stack, uv)
             ref, ref_ok = (vals[:, 0], vals[:, 1], vals[:, 2]), pts.valid[:-1] & ref_ok
         pts_l = TrackPoints(uv=uv, p3d=p3d, intensity=ref[0], valid=ref_ok)
+        J_ref = ic_jacobian(pts_l, ref[1], ref[2], cam_l)
         err["lm_evaluate"] = max(err["lm_evaluate"], check_lm_evaluate(
-            pyr.images[lvl][1:], pts_l, T, cam_l, f"lm_evaluate IC level {lvl}",
-            J_ref=ic_jacobian(pts_l, ref[1], ref[2], cam_l)))
+            pyr.images[lvl][1:], pts_l, T, cam_l, f"lm_evaluate IC level {lvl}", J_ref=J_ref))
+        err["lm_step"] = max(err["lm_step"], check_lm_step(
+            pyr.images[lvl][1:], pts_l, T, cam_l, f"lm_step IC level {lvl}", J_ref=J_ref))
     return err
 
 
@@ -1109,7 +1218,9 @@ def phase_timing(pyr, pts, cam, T_rel, affine: bool = True):
     `bilinear_sample` is the texel path the chunk runs, `bilinear_sample_planar`
     the same sample from three planes; both beside `grid_sample`.
     `lm_evaluate_affine` (with affine=True) is the same evaluation with a
-    brightness (a, b)."""
+    brightness (a, b); `lm_step` (and `lm_step_affine`) the update after
+    it, on the sums and state of its first iteration from T_rel
+    (`lm_step_calls`, which also checks it)."""
     from uwslam_tpu_torch import ops
     from uwslam_tpu_torch.tracking.photometric import ic_jacobian
     from uwslam_tpu_torch.tracking.points import TrackPoints
@@ -1150,8 +1261,12 @@ def phase_timing(pyr, pts, cam, T_rel, affine: bool = True):
         pairs["lm_evaluate_affine"] = (
             lambda: evaluator_ab(T_rel, ab),
             lambda: ops.lm_evaluate_plain(tgt0[:, 0], p3d, T_rel, *ab_args, ab=ab))
+    _, lm_calls, lm_bounds = lm_step_calls(evaluator, evaluator_ab if affine else None, T_rel,
+                                           ab, "offline")
+    pairs.update(lm_calls)
     ok1 = ops.cuda_bilinear_sample(stack1, uv1)[1]
     bounds = {
+        **lm_bounds,
         **pyr_bounds,
         "warp_sample": bound_sampler(ok, 1, 12),
         "bilinear_sample": bound_sampler(ok1, 3, 8),
@@ -1262,8 +1377,9 @@ def phase_parity_live(ref, tgt, pts, cam, track_levels, what: str, describe: boo
     """Kernels at a path's B = 1 shapes against their plain versions: the
     pyramid kernel's `ref` field by field and level by level, and K1 alone on
     each of its levels; at each track level K3 (C = 1, the FC
-    reference pass), K2 (C = 1 and C = 3 texels) and `lm_evaluate` (FC, the
-    pose alone and with affine brightness) for
+    reference pass), K2 (C = 1 and C = 3 texels), `lm_evaluate` and the
+    update after it, `lm_step` (FC, the pose alone and with affine
+    brightness) for
     the pair (ref, tgt) with `ref`'s points `pts`; with describe=True K3 at
     the descriptor taps of every level. `what` names the path in a failure.
     Returns ({kernel: max abs error}, what `time_pairs` takes: {kernel:
@@ -1279,7 +1395,7 @@ def phase_parity_live(ref, tgt, pts, cam, track_levels, what: str, describe: boo
     frame = ref.images[0]                                   # (1, H, W)
     gen = torch.Generator().manual_seed(seed)
     T_move = se3.exp(0.02 * torch.randn(1, 6, generator=gen)).to(dev)
-    err = {"warp_sample": 0.0, "bilinear_sample": 0.0, "lm_evaluate": 0.0,
+    err = {"warp_sample": 0.0, "bilinear_sample": 0.0, "lm_evaluate": 0.0, "lm_step": 0.0,
            **check_pyramid(ref, what)}
     calls, bounds, library = pyramid_calls(frame, ref.levels)
     for lvl in track_levels:
@@ -1306,6 +1422,8 @@ def phase_parity_live(ref, tgt, pts, cam, track_levels, what: str, describe: boo
                                 valid=pts.valid & ref_ok)
             err["lm_evaluate"] = max(err["lm_evaluate"], check_lm_evaluate(
                 texels, pts_l, T, cam_l, f"lm_evaluate FC {what} level {lvl}"))
+            err["lm_step"] = max(err["lm_step"], check_lm_step(
+                texels, pts_l, T, cam_l, f"lm_step FC {what} level {lvl}"))
         if lvl == 0:
             q = pts.p3d
             sampler = ops.WarpSampler(plane, q, cam_l)
@@ -1330,6 +1448,11 @@ def phase_parity_live(ref, tgt, pts, cam, track_levels, what: str, describe: boo
             calls["lm_evaluate_affine"] = (
                 lambda: evaluator_ab(T_move, ab),
                 lambda: ops.lm_evaluate_plain(texels, q, T_move, *ab_args, ab=ab))
+            lm_err, lm_calls, lm_bounds = lm_step_calls(evaluator, evaluator_ab, T_move, ab,
+                                                        f"FC {what}")
+            err["lm_step"] = max(err["lm_step"], lm_err)
+            calls.update(lm_calls)
+            bounds.update(lm_bounds)
             bounds["warp_sample"] = bound_sampler(ok, 1, 12)
             bounds["warp_sample_texels"] = bound_sampler(ok, 3, 12)
             bounds["lm_evaluate"] = bound_lm_evaluate(pts_l.valid, ok, fc=True)
@@ -3739,12 +3862,14 @@ def phase_eval_configs(table) -> dict:
         if health_key(m) in jax_keys]}
     misses += [f"health check every JAX CLI run of these frames passes: {m}" for m in asserted]
     # Configs 2 and 3 track with affine brightness (--affine, Huber): every LM
-    # evaluation after a level's first is one lm_evaluate launch.
+    # evaluation after a level's first is one lm_evaluate launch, and every
+    # update one lm_step launch.
     out["affine_configs_launches"] = {
-        c: {n: out[f"config{c}"]["launches"][n] for n in ("warp_sample", "lm_evaluate")}
+        c: {n: out[f"config{c}"]["launches"][n] for n in ("warp_sample", "lm_evaluate",
+                                                           "lm_step")}
         for c in AFFINE_CONFIGS}
-    misses += [f"config {c} (--affine) launched lm_evaluate 0 times" for c in AFFINE_CONFIGS
-               if not out["affine_configs_launches"][c]["lm_evaluate"]]
+    misses += [f"config {c} (--affine) launched {n} 0 times" for c in AFFINE_CONFIGS
+               for n in ("lm_evaluate", "lm_step") if not out["affine_configs_launches"][c][n]]
     if misses:
         raise AssertionError(f"phase 24: {json.dumps(out)}; missed: {misses}")
     total = {k["name"]: sum(out[f"config{c}"]["launches"][k["name"]] for c in EVAL_CONFIGS)
@@ -3758,9 +3883,11 @@ def phase_eval_configs(table) -> dict:
 
 # Phase 25: the measuring tools.
 BUDGET_STAGE_SUM_RTOL = 3e-2   # pyramid + select + track busy against the whole chunk's
-# The chunk's kernels: its pyramid is one launch (11,110 when K1 ran on each of
-# its 5 levels beside 16 plain operations of the 2x2 means).
-CHUNK_LAUNCHES = 11090
+# The chunk's kernels: its pyramid is one launch (20 more when K1 ran on each of
+# its 5 levels beside 16 plain operations of the 2x2 means), and each LM iteration
+# an lm_evaluate and an lm_step launch (10,580 more when the update ran as plain
+# operations).
+CHUNK_LAUNCHES = 510
 # A profile can come back short of a kernel record or two: three profiles of
 # the same chunk read 11,110, 11,109 and 11,109 on an H100.
 PROFILE_RECORDS_LOST = 3
@@ -3771,7 +3898,8 @@ WRAPPER_FILES = {"pyramid": ("pyramid_kernel", "uwslam_tpu_torch/ops/cuda_pyrami
                  "warp_sample": ("warp_sample_kernel", "uwslam_tpu_torch/ops/cuda_track.py", 5),
                  "bilinear_sample": ("bilinear_sample_kernel",
                                      "uwslam_tpu_torch/ops/cuda_sample.py", 3),
-                 "lm_evaluate": ("lm_evaluate_kernel", "uwslam_tpu_torch/ops/cuda_track.py", 32)}
+                 "lm_evaluate": ("lm_evaluate_kernel", "uwslam_tpu_torch/ops/cuda_track.py", 32),
+                 "lm_step": ("lm_step_kernel", "uwslam_tpu_torch/ops/cuda_lm.py", 32)}
 SCALING_RUNS = 1               # solves per shard count here (the tool's default is 3)
 SCALING_COST_RTOL = 1e-3       # final cost across a curve's shard counts
 BUDGET_REPS = 1                # timed calls per stage here (the tool's default is 10)
@@ -4168,11 +4296,16 @@ def main(stack: contextlib.ExitStack) -> None:
                       "bound_ms_euroc": t["bound_ms"], "library_ms_euroc": t["library_ms"]})
     # lm_evaluate with affine brightness (configs 2 and 3): IC at the offline
     # shape, FC at the live and the rectified EUROC shapes.
-    lm = next(k for k in kernels if k["name"] == "lm_evaluate")
-    for shape, t in (("affine", times), ("live_affine", live_k), ("euroc_affine", euroc_times)):
-        t = t["lm_evaluate_affine"]
-        lm.update({f"ms_{shape}": t["device_ms"], f"plain_ms_{shape}": t["plain_device_ms"],
-                   f"bound_ms_{shape}": t["bound_ms"], f"library_ms_{shape}": t["library_ms"]})
+    # lm_step with affine brightness: at the offline and the live shapes.
+    for name, shapes in (("lm_evaluate", (("affine", times), ("live_affine", live_k),
+                                          ("euroc_affine", euroc_times))),
+                         ("lm_step", (("affine", times), ("live_affine", live_k)))):
+        lm = next(k for k in kernels if k["name"] == name)
+        for shape, t in shapes:
+            t = t[f"{name}_affine"]
+            lm.update({f"ms_{shape}": t["device_ms"], f"plain_ms_{shape}": t["plain_device_ms"],
+                       f"bound_ms_{shape}": t["bound_ms"],
+                       f"library_ms_{shape}": t["library_ms"]})
     sampler = next(k for k in kernels if k["name"] == "bilinear_sample")
     sampler["max_abs_err"] = max(sampler["max_abs_err"], depth_errs["live"],
                                  depth_errs["offline"])

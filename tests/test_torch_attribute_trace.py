@@ -115,7 +115,7 @@ def test_hand_written_kernels_land_on_their_wrappers():
     assert a["unattributed_ms_per_chunk"] <= 0.02 * a["device_busy_ms_per_chunk"]
     want = {("pyramid_kernel", "ops/cuda_pyramid.py"): 1, ("warp_sample_kernel", "ops/cuda_track.py"): 5,
             ("bilinear_sample_kernel", "ops/cuda_sample.py"): 3,
-            ("lm_evaluate_kernel", "ops/cuda_track.py"): 32}
+            ("lm_evaluate_kernel", "ops/cuda_track.py"): 32, ("lm_step_kernel", "ops/cuda_lm.py"): 32}
     for (kernel, wrapper), launches in want.items():
         rows = [r for r in a["hand_written"] if kernel in r["op"] and r["source"].split(":")[0]
                 .endswith(wrapper)]

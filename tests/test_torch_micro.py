@@ -10,7 +10,8 @@ torch.set_num_threads(1)
 from uwslam_tpu_torch import micro  # noqa: E402
 
 OPS = ("pyramid5_k1", "live_pyramid3", "roi_pyramid5", "scharr_l0", "sample_c3", "sample_c1",
-       "normal_eq_6x6", "solve_6x6", "topk_points", "se3_exp_compose_inv", "lm_evaluate",
+       "normal_eq_6x6", "solve_6x6", "lm_step", "lm_step", "lm_step_affine", "lm_step_affine",
+       "topk_points", "se3_exp_compose_inv", "lm_evaluate",
        "lm_evaluate_affine",
        # K1 on the offline pyramid's levels 1-4, the kernels at the rectified EUROC shapes
        "scharr_l1", "scharr_l2", "scharr_l3", "scharr_l4",

@@ -10,11 +10,14 @@ timed calls gives each part exactly what those calls took); every retired
 frame's `in_flight` follows from the pipeline's structure (a batch of 4
 staged one call ahead); a forced loss counts its lost, relocalized and
 synchronous frames as the states say; a steady run captures one graph
-(a stand-in for `CapturedStep`, since the CPU has no graphs).
+(a stand-in for `CapturedStep`, since the CPU has no graphs) and counts the
+LM levels each replay runs.
 
 Marked `cuda` (skipped without a card): over 100 replays each frame's stage
 times are non-negative and together within 2% of CUDA events around the
-graph's replay, and in a profiled stretch every `uws_*` record on the
+graph's replay (queued behind a device spin, so that the events time the
+replay on the device and not the host's launch of it into an idle
+device), the replays run their three track levels on `lm_step`, and in a profiled stretch every `uws_*` record on the
 device is a user annotation, which `profiling.device_work` leaves out.
 This file imports neither JAX nor the JAX package, so on a card it runs
 alone: `python -m pytest --noconftest -p no:cacheprovider
@@ -240,10 +243,12 @@ def test_a_forced_loss_counts_as_the_states_say():
 
 
 class EagerStep:
-    """Stands in for `CapturedStep` on the CPU: runs the step as it is."""
+    """Stands in for `CapturedStep` on the CPU: runs the step as it is. Its
+    one call at construction stands in for the capture."""
 
     def __init__(self, fn, example_inputs):
         self.fn, self.replays = fn, 0
+        fn(*example_inputs)
 
     def __call__(self, *inputs):
         self.replays += 1
@@ -272,6 +277,11 @@ def test_a_steady_run_captures_once(monkeypatch):
     assert system.tracer.counts["captures"] == 1 and system.tracer.calls["capture"] == 1
     assert system.tracer.parents["capture"] == {"dispatch"}
     assert system.graph_replays == 13 and "captures (" in system.tracer.line()
+    # the three track levels, Huber: each replay runs them on the plain
+    # loop, since the CPU runs no kernel
+    assert (system.tracer.counts["lm_kernel_levels"], system.tracer.counts["lm_plain_levels"]) \
+        == (0, 3)
+    assert "LM levels per replay of the captures: 0 on lm_step, 3 plain" in system.tracer.line()
 
 
 # ---- on the card
@@ -283,14 +293,21 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+SPIN_CYCLES = 1_000_000   # ~0.5 ms of device spin: longer than a replay's launch
+
+
 class TimedGraph:
-    """A captured graph whose replays are bracketed by CUDA events."""
+    """A captured graph whose replays are bracketed by CUDA events. Each
+    replay is queued behind a device spin: the host-paced loop leaves the
+    device idle between replays, and the events around a replay launched
+    into an idle device would also time the host's launch of the graph."""
 
     def __init__(self, graph):
         self.graph, self.events = graph, []
 
     def replay(self):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         self.graph.replay()
         end.record()
@@ -321,6 +338,9 @@ def test_stage_stamps_match_cuda_events_on_card(cuda_device):
         stamped, event_ms = stamped + total, event_ms + elapsed
     assert stamped == pytest.approx(event_ms, rel=0.02)
     assert system.tracer.counts["step_frames"] == 102
+    # the three track levels, Huber: each replay runs them on lm_step
+    assert (system.tracer.counts["lm_kernel_levels"], system.tracer.counts["lm_plain_levels"]) \
+        == (3, 0)
     assert max(by_id[k].step_ms["track"] for k in range(2, 103)) > 0
 
 

@@ -66,9 +66,9 @@ LAUNCHER = "uwslam_tpu_torch/ops/_lib.py"
 RANGE_PREFIX = "uws_"        # `ops._lib.launch`'s ranges: the C entry points' names
 # The port's own kernels (`csrc/`) by the names the profiler gives them: the
 # pyramid kernel (all levels of a pyramid in one launch; K1 alone at one
-# level), K2 and K3, and the fused LM evaluation.
+# level), K2 and K3, the fused LM evaluation and the LM update.
 HAND_WRITTEN = ("pyramid_kernel", "warp_sample_kernel", "bilinear_sample_kernel",
-                "lm_evaluate_kernel")
+                "lm_evaluate_kernel", "lm_step_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OP_CATS = ("cpu_op", "user_annotation")
 RUNTIME_CATS = ("cuda_runtime", "cuda_driver")

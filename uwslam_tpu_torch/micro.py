@@ -7,8 +7,9 @@ Counterpart of `benchmarks/micro.py` (the JAX package's, whose op list and
 shapes it keeps: a batch of 96 frames of 480 x 640, 2048 points per frame,
 65,536 twists), with the pyramid kernel at the offline, live, rectified-ROI
 and EUROC shapes beside `F.conv2d` of level 0's gradients, K1 alone on the
-offline pyramid's coarser levels and the kernels at the rectified EUROC
-shapes (`k1_level_cases`, `euroc_cases`). Each op is timed by device time:
+offline pyramid's coarser levels, the kernels at the rectified EUROC
+shapes (`k1_level_cases`, `euroc_cases`) and the LM update `lm_step` at
+the live frame's 1 pair and the offline chunk's pairs (`lm_step_cases`). Each op is timed by device time:
 one warm-up call traced and dropped (`warm_profile`), then
 `REPS` calls under `torch.profiler`, the sum of the kernels' device time
 over them divided by `REPS` (CUDA events around back-to-back calls where a
@@ -27,6 +28,7 @@ on the CPU and nothing is timed: a check that the cases build and run.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 
@@ -40,6 +42,8 @@ N_TWISTS = 65536
 EUROC_W, EUROC_H = 736, 480              # eval.py's EUROC calibration, rectified size
 EUROC_F = (458.654, 457.296)             # its pinhole focal lengths
 REPS = 20
+LM_STEP_ITERS = 10       # an lm_step row's max_iters: its pairs stay active
+LM_STEP_STOCK = 128      # copies of its state: more than the calls of its timings
 WARM_LAUNCHES = 1024     # small kernels traced and dropped before a profile's window
 # Operations per output element, counted from the kernels' sources: K1 per
 # pixel; K2, K3 per valid point (warp 18, projection 6, taps 10, blend 13 per
@@ -53,6 +57,19 @@ WARP_FLOPS, TAPS_FLOPS, BLEND_FLOPS = 24, 10, 13
 LM_FLOPS_IC = WARP_FLOPS + TAPS_FLOPS + BLEND_FLOPS + 11 + 6 + 54 + 3
 LM_FLOPS_FC = LM_FLOPS_IC + 2 * BLEND_FLOPS + 40
 LM_FLOPS_AFFINE = 3 + 2 + 2 * (36 + 8 - 21 - 6)
+# lm_step per pair, counted from csrc/lm_step.cu: err, the accept test and
+# the damping 4; the damped diagonal 3 n and off-diagonal 2 per entry; the
+# Cholesky sum over i of (i + 1)^2; the two substitutions 2 n^2; |delta|
+# 2 n + 1; se3 exp 165 (theta^2 6, its coefficients 9 with sin and cos, W^2
+# 54, R and the left Jacobian 72, t 18, sqrt 1, the three divisions 5); the
+# 4 x 4 compose 128; normalize 281 (Frobenius 20, rescale 9, two Newton steps
+# of 126); the brightness 2.
+LM_STEP_POSE_FLOPS = 165 + 128 + 281
+
+
+def lm_step_flops(n: int) -> int:
+    return (4 + 3 * n + n * (n - 1) + sum((i + 1) ** 2 for i in range(n)) + 2 * n * n
+            + 2 * n + 1 + LM_STEP_POSE_FLOPS + (2 if n == 8 else 0))
 
 
 def bound(n_bytes: float, flops: float) -> dict:
@@ -301,6 +318,96 @@ def euroc_cases(dev) -> list[dict]:
     ]
 
 
+def bound_lm_step(B: int, affine: bool) -> dict:
+    """lm_step on B pairs taking an accepted step: per pair the candidate's
+    sums, its pose, error, damping, k and done read, and the best state's
+    sums, both poses, error, count, damping, k and done written (with affine
+    brightness (a, b) read and both brightnesses written)."""
+    width = 80 if affine else 48
+    read = 4 * width + 64 + 4 + 4 + 8 + 1 + (8 if affine else 0)
+    write = 4 * width + 2 * 64 + 4 + 8 + 4 + 8 + 1 + (16 if affine else 0)
+    return bound(B * (read + write), B * lm_step_flops(8 if affine else 6))
+
+
+class _Given:
+    """Stands in for an `LMEvaluator` whose every result is `sums`."""
+
+    def __init__(self, sums, affine: bool):
+        from .ops.cuda_track import lm_layout
+
+        self.sums, self.affine, self.layout = sums, affine, lm_layout(affine)
+
+    def __call__(self, T, ab=None):
+        return self.sums
+
+
+def lm_step_pair(state, sums, affine: bool):
+    """(kernel, plain) calls of one LM update of `state` (an `ops.LMLoop`)
+    from the candidate's `sums`: `ops.lm_step` and the plain step
+    (`tracking.photometric.lm_step`) on the same state; on the CPU, where the
+    kernel does not run, the plain step in its place. A launch updates its
+    state in place, so each kernel call takes the next of LM_STEP_STOCK
+    copies of `state`, made beforehand."""
+    from . import ops
+    from .ops.graph import tree_clone
+    from .tracking import photometric
+
+    _, evaluate, solve = photometric._fused_steps(_Given(sums, affine), state.T,
+                                                  state.ab if affine else None)
+
+    def plain():
+        return photometric.lm_step(state, evaluate(state.T, state.ab), solve, LM_STEP_ITERS,
+                                   1e-4, affine)
+
+    if sums.device.type != "cuda":
+        return plain, plain
+    stock = itertools.cycle([tree_clone(state) for _ in range(LM_STEP_STOCK)])
+
+    def kernel():
+        ops.lm_step(next(stock), sums, LM_STEP_ITERS, 1e-4)
+
+    return kernel, plain
+
+
+def lm_step_cases(dev, pairs: tuple[int, ...]) -> list[dict]:
+    """One LM update (`lm_step_pair`) of 1 pair (the live frame) and of the
+    offline chunk's pairs, pose alone and with affine brightness. Every pair
+    takes the full update: an accepted step of an SPD system (sums in
+    `lm_evaluate`'s layout, from a seed)."""
+    from . import ops
+    from .lie import se3
+
+    out = []
+    for affine in (False, True):
+        lay = ops.cuda_track.lm_layout(affine)
+        n = lay.n
+        for b in pairs:
+            gen = torch.Generator().manual_seed(b + 10 * n)
+            A = torch.randn(b, n, n, generator=gen)
+            sums = torch.zeros(b, lay.width)
+            sums[:, lay.H] = (A @ A.transpose(1, 2) * 50.0 + 5.0 * torch.eye(n)).reshape(b, -1)
+            sums[:, lay.b] = torch.randn(b, n, generator=gen) * 5.0
+            sums[:, lay.cost] = sums[:, lay.count] = float(N_PTS)
+            sums = sums.to(dev)
+            state = ops.LMLoop(
+                T=se3.exp(torch.randn(b, 6, generator=gen) * 0.05).to(dev),
+                ab=torch.randn(b, 2, generator=gen).to(dev),
+                T_best=se3.exp(torch.randn(b, 6, generator=gen) * 0.05).to(dev),
+                ab_best=torch.randn(b, 2, generator=gen).to(dev),
+                s_best=(sums * 2.0,), error=torch.full((b,), 2.0, device=dev),
+                lam=torch.full((b,), 1e-3, device=dev),
+                k=torch.zeros(b, dtype=torch.int64, device=dev),
+                done=torch.zeros(b, dtype=torch.bool, device=dev),
+                n_inlier=torch.full((b,), N_PTS, dtype=torch.int64, device=dev))
+            fn, plain = lm_step_pair(state, sums, affine)
+            out.append({"op": f"lm_step{'_affine' if affine else ''}(b{b})", "kernel": "lm_step",
+                        "fn": fn, "plain": plain,
+                        "note": ("the live frame's update: launch-bound, one thread" if b == 1
+                                 else "the offline chunk's pairs, one thread each"),
+                        **bound_lm_step(b, affine)})
+    return out
+
+
 def cases(dev, batch: int = B) -> list[dict]:
     """benchmarks/micro.py:115-215's ops, at its shapes (`batch` frames), as
     the port runs them."""
@@ -376,6 +483,7 @@ def cases(dev, batch: int = B) -> list[dict]:
          "note": "the port's unrolled Cholesky (tracking's LM solve)",
          "library": ("torch.linalg.solve", lambda: torch.linalg.solve(Hm, rhs)),
          **bound(4 * batch * (36 + 6 + 6), batch * (6 ** 3 / 3 + 2 * 36 + 6))},
+        *lm_step_cases(dev, (1, batch - 1)),
         {"op": f"topk_points(b{batch})",
          "fn": lambda: topk_gradient_points(frames, frames, cam, num_points=N_PTS, mono_z=2.0,
                                             block=8),

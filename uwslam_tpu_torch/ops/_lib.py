@@ -34,7 +34,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"          # the build directory of a writable install
-SOURCES = ("pyramid.cu", "warp_sample.cu", "lm_evaluate.cu", "stamp.cu")
+SOURCES = ("pyramid.cu", "warp_sample.cu", "lm_evaluate.cu", "lm_step.cu", "stamp.cu")
 HEADERS = ("sampling.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,6 +55,10 @@ _SIGNATURES = {
     # ref_stride, fx, fy, cx, cy, fc, affine, kind, threads, blocks, stream
     "uws_lm_evaluate": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _F, _F, _F, _F, _I, _I, _I, _I, _I, _P),
+    # sums, T, ab, T_best, ab_best, s_best, error, lam, k, done, n_inlier,
+    # T0, ab0, B, affine, max_iters, eps, init_lambda, init, stream
+    "uws_lm_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _F, _F, _I, _P),
     # clock, ms (or NULL), slot, stream
     "uws_stamp": (_P, _P, _I, _P),
 }

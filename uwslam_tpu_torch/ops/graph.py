@@ -20,12 +20,13 @@ from __future__ import annotations
 
 import torch
 
+from .cuda_lm import lm_step
 from .cuda_pyramid import cuda_build_pyramid, scharr_gradients_batched
 from .cuda_sample import cuda_bilinear_sample
 from .cuda_track import lm_evaluate, warp_and_sample
 
 COUNTED = (cuda_build_pyramid, warp_and_sample, cuda_bilinear_sample, lm_evaluate,
-           scharr_gradients_batched)
+           scharr_gradients_batched, lm_step)
 WARMUP_CALLS = 3
 
 

@@ -94,7 +94,7 @@ from .tracking.depth_prior import (
     triangulate_matches,
 )
 from .tracking.depth_refine import refine_inverse_depth, transfer_depths
-from .tracking.photometric import track
+from .tracking.photometric import LM_LEVELS, track
 from .tracking.points import _depth_at, dense_points, patch_points, topk_gradient_points
 from .tracking.robust import masked_median
 from .utils.profiling import StageTimer, Tracer
@@ -1099,12 +1099,25 @@ class SlamSystem:
 
     def _graph(self, key: tuple, fn, inputs) -> CapturedStep:
         """The CUDA graph of `fn` kept under `key`, captured on `inputs` at
-        its first use (span `capture`, counter `captures`)."""
+        its first use (span `capture`, counter `captures`; counters
+        `lm_kernel_levels` and `lm_plain_levels` add the LM levels that
+        each replay of it runs, by path: those of the call captured, the
+        last call of `fn`)."""
         step = self._steps.get(key)
         if step is None:
+            levels = {}
+
+            def counted(*args):
+                before = dict(LM_LEVELS)
+                out = fn(*args)
+                levels.update((name, n - before[name]) for name, n in LM_LEVELS.items())
+                return out
+
             with self.tracer.span("capture"):
-                step = self._steps[key] = CapturedStep(fn, inputs)
+                step = self._steps[key] = CapturedStep(counted, inputs)
             self.tracer.count("captures")
+            for name, n in levels.items():
+                self.tracer.count(name, n)
         return step
 
     def _run_step(self, kind: str, *inputs):

@@ -14,11 +14,14 @@ K2's redesign `ops.cuda_track.lm_evaluate`: warp, sample, residual (with
 affine=True r - a I_ref - b), Jacobian (with the columns (-I_ref, -1)),
 robust weight and cost, and the pair's normal equations; the loop carries
 48 floats per pair (80 with affine), and residuals and Jacobians never
-reach device memory. Tukey weights (their scale is a median of the
-residuals at every solve) and the first evaluation of every level (whose
-residuals give the level's scale sigma0) go through
-`ops.cuda_track.warp_and_sample` (C = 3 texels in FC, C = 1 in IC and the
-basin guard) and plain operations. The reference-side `bilinear_sample_auto`
+reach device memory. On a card the update that follows each evaluation
+(the accept test, the damped solve, the pose and brightness update) is
+one launch of `ops.cuda_lm.lm_step` on state buffers the level owns; its
+plain version, `lm_step`, is the CPU's and the Tukey loop's. Tukey
+weights (their scale is a median of the residuals at every solve) and
+the first evaluation of every level (whose residuals give the level's
+scale sigma0) go through `ops.cuda_track.warp_and_sample` (C = 3 texels
+in FC, C = 1 in IC and the basin guard) and plain operations. The reference-side `bilinear_sample_auto`
 is kernel K3, `ops.cuda_sample.cuda_bilinear_sample`.
 
 The JAX LM loop is a `lax.while_loop`, which under vmap runs until every
@@ -39,6 +42,8 @@ import torch
 from ..camera.model import PinholeCamera
 from ..image.pyramid import FramePyramid
 from ..lie import se3, so3
+from ..ops import cuda_lm
+from ..ops.cuda_lm import LMLoop
 from ..ops.cuda_sample import cuda_bilinear_sample, pack_texels
 from ..ops.cuda_track import LMEvaluator, WarpSampler, fc_jacobian, lm_layout, warp_and_sample
 from ..utils.linalg import cholesky_solve_unrolled
@@ -50,6 +55,11 @@ disable_tf32()
 
 MODES = ("fc", "ic")
 FUSED_KINDS = (WeightKind.HUBER, WeightKind.NONE)   # what `lm_evaluate` computes
+# LM levels built, by the path their updates take: `lm_step` launches (a
+# fused level on a card) or the plain loop (the CPU, Tukey weights). A CUDA
+# graph's replay runs no Python, so levels are counted when they are built;
+# `system.SlamSystem` reads the counts around each capture.
+LM_LEVELS = {"lm_kernel_levels": 0, "lm_plain_levels": 0}
 
 
 class TrackResult(NamedTuple):
@@ -178,16 +188,66 @@ def _fused_steps(evaluator: LMEvaluator, T0, ab0):
     return (err0, n0, (sums0.clone(),)), evaluate, solve
 
 
-class _Best(NamedTuple):
-    """What `_lm_loop` returns: the best accepted state."""
-    T: torch.Tensor
-    ab: torch.Tensor
-    state: tuple
-    error: torch.Tensor
-    lam: torch.Tensor
-    k: torch.Tensor
-    done: torch.Tensor
-    n_inlier: torch.Tensor
+def _apply_delta(T, delta):
+    # FC: T exp(delta). IC: with r = I_tgt - I_ref and b = -J^T W r the
+    # reference-side increment is exp(-delta), and T exp(-delta)^-1 is the
+    # same update. Affine brightness (delta[:, 6:]) is additive.
+    return se3.normalize(se3.compose(T, se3.exp(delta[:, :6])))
+
+
+def lm_start(T0, ab0, first: tuple, solve: Callable, init_lambda: float,
+             affine: bool) -> LMLoop:
+    """What precedes the LM loop, from `first` = (error, valid count, state)
+    of the evaluation at (T0, ab0): the best state is the initial one, and
+    the first candidate is its damped step at init_lambda. The plain version
+    of `ops.cuda_lm.lm_step_init`."""
+    error, n_inlier, s_best = first
+    B = T0.shape[0]
+    lam = torch.full((B,), init_lambda, dtype=T0.dtype, device=T0.device)
+    delta0 = solve(s_best, lam)
+    return LMLoop(
+        T=_apply_delta(T0, delta0), ab=ab0 + delta0[:, 6:] if affine else ab0,
+        T_best=T0, ab_best=ab0, s_best=s_best, error=error, lam=lam,
+        k=torch.zeros(B, dtype=torch.int64, device=T0.device),
+        done=torch.zeros(B, dtype=torch.bool, device=T0.device), n_inlier=n_inlier)
+
+
+def lm_step(loop: LMLoop, evaluation: tuple, solve: Callable, max_iters: int, eps: float,
+            affine: bool) -> LMLoop:
+    """One iteration of the deferred-evaluation LM after the candidate's
+    evaluation = (error (B,), valid count (B,), state) at (loop.T, loop.ab):
+    accept or reject the previous step on the rho objective at the level's
+    sigma0, solve the next step from the best state (`solve(state, lam) ->
+    delta`) and stop a pair on a small accepted step, a damping above 500 or
+    a step that is not finite. Every field changes only for pairs still
+    iterating. The plain version of `ops.cuda_lm.lm_step`, which the card's
+    fused path launches in its place."""
+    err, n_valid, s = evaluation
+    T, ab, T_best, ab_best, s_best, error, lam, k, done, n_inlier = loop
+    active = ~done & (k < max_iters)
+    accept = (err < error) & torch.isfinite(err)
+    T_base = _where(accept, T, T_best)
+    s_base = tuple(_where(accept, x, y) for x, y in zip(s, s_best))
+    err_base = torch.where(accept, err, error)
+    lam_next = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-7, 1e3)
+    delta = solve(s_base, lam_next)
+    ok = torch.isfinite(delta).all(-1)
+    T_next = _where(ok, _apply_delta(T_base, delta), T_base)
+    small = torch.linalg.vector_norm(delta, dim=-1) < eps
+    done_next = (accept & small) | (lam_next > 500.0) | ~ok
+    # The inlier count of the best pose, not of a rejected candidate.
+    n_next = torch.where(accept, n_valid, n_inlier)
+    if affine:
+        ab_base = _where(accept, ab, ab_best)
+        ab_next = _where(ok, ab_base + delta[:, 6:], ab_base)
+        ab = _where(active, ab_next, ab)
+        ab_best = _where(active, ab_base, ab_best)
+    return LMLoop(
+        T=_where(active, T_next, T), ab=ab, T_best=_where(active, T_base, T_best),
+        ab_best=ab_best, s_best=tuple(_where(active, x, y) for x, y in zip(s_base, s_best)),
+        error=torch.where(active, err_base, error), lam=torch.where(active, lam_next, lam),
+        k=k + active.long(), done=torch.where(active, done_next, done),
+        n_inlier=torch.where(active, n_next, n_inlier))
 
 
 def _lm_loop(
@@ -200,66 +260,36 @@ def _lm_loop(
     eps: float,
     init_lambda: float,
     affine: bool,
-) -> _Best:
-    """Deferred-evaluation LM shared by FC and IC, fused and not: each
-    iteration evaluates the current candidate once (`evaluate(T, ab) ->
-    (error (B,), valid count (B,), state)`, `first` at (T0, ab0)), accepts or
-    rejects the previous step on the rho objective at the level's sigma0, and
-    solves the next step from the best state (`solve(state, lam) -> delta`).
+) -> LMLoop:
+    """Deferred-evaluation LM shared by FC and IC, fused and not: `lm_start`,
+    then `max_iters` times the candidate's evaluation (`evaluate(T, ab) ->
+    (error (B,), valid count (B,), state)`, `first` at (T0, ab0)) and
+    `lm_step`. A fixed loop: finished pairs keep their state.
 
     `state` is a tuple of tensors with the pair dimension first, whatever
     the solve needs (`_plain_steps`, `_fused_steps`); the loop only selects
     between the candidate's and the best one's per pair. The brightness
     (a, b) is carried only when `affine`; otherwise it stays `ab0`."""
-    B = T0.shape[0]
-    error, n_inlier, s_best = first
-
-    def apply_delta(T, delta):
-        # FC: T exp(delta). IC: with r = I_tgt - I_ref and b = -J^T W r the
-        # reference-side increment is exp(-delta), and T exp(-delta)^-1 is
-        # the same update. Affine brightness (delta[:, 6:]) is additive.
-        return se3.normalize(se3.compose(T, se3.exp(delta[:, :6])))
-
-    lam = torch.full((B,), init_lambda, dtype=T0.dtype, device=T0.device)
-    delta0 = solve(s_best, lam)
-    T = apply_delta(T0, delta0)
-    ab = ab0 + delta0[:, 6:] if affine else ab0
-    T_best, ab_best = T0, ab0
-    k = torch.zeros(B, dtype=torch.int64, device=T0.device)
-    done = torch.zeros(B, dtype=torch.bool, device=T0.device)
-
+    loop = lm_start(T0, ab0, first, solve, init_lambda, affine)
     for _ in range(max_iters):
-        active = ~done & (k < max_iters)
-        err, n_valid, s = evaluate(T, ab)
-        accept = (err < error) & torch.isfinite(err)
-        T_base = _where(accept, T, T_best)
-        s_base = tuple(_where(accept, x, y) for x, y in zip(s, s_best))
-        err_base = torch.where(accept, err, error)
-        lam_next = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-7, 1e3)
-        delta = solve(s_base, lam_next)
-        ok = torch.isfinite(delta).all(-1)
-        T_next = _where(ok, apply_delta(T_base, delta), T_base)
-        small = torch.linalg.vector_norm(delta, dim=-1) < eps
-        done_next = (accept & small) | (lam_next > 500.0) | ~ok
-        # The inlier count of the best pose, not of a rejected candidate.
-        n_next = torch.where(accept, n_valid, n_inlier)
-        # Commit the step only for pairs still iterating.
-        T = _where(active, T_next, T)
-        T_best = _where(active, T_base, T_best)
-        s_best = tuple(_where(active, x, y) for x, y in zip(s_base, s_best))
-        if affine:
-            ab_base = _where(accept, ab, ab_best)
-            ab_next = _where(ok, ab_base + delta[:, 6:], ab_base)
-            ab = _where(active, ab_next, ab)
-            ab_best = _where(active, ab_base, ab_best)
-        error = torch.where(active, err_base, error)
-        lam = torch.where(active, lam_next, lam)
-        k = k + active.long()
-        done = torch.where(active, done_next, done)
-        n_inlier = torch.where(active, n_next, n_inlier)
+        loop = lm_step(loop, evaluate(loop.T, loop.ab), solve, max_iters, eps, affine)
+    return loop
 
-    return _Best(T=T_best, ab=ab_best, state=s_best, error=error, lam=lam, k=k,
-                 done=done, n_inlier=n_inlier)
+
+def _kernel_loop(evaluator: LMEvaluator, T0, ab0, max_iters: int, eps: float,
+                 init_lambda: float) -> LMLoop:
+    """`_lm_loop` of the fused steps on a card: the first evaluation and
+    `lm_step_init`, then per iteration one `lm_evaluate` and one `lm_step`
+    launch on the level's state buffers, updated in place."""
+    affine = evaluator.affine
+
+    def evaluate(T, ab):
+        return evaluator(T, ab) if affine else evaluator(T)
+
+    loop = cuda_lm.lm_step_init(evaluate(T0, ab0), T0, ab0, init_lambda, affine)
+    for _ in range(max_iters):
+        cuda_lm.lm_step(loop, evaluate(loop.T, loop.ab), max_iters, eps)
+    return loop
 
 
 def _intensity_residual(sampler, pts, ref_intensity, T, ab=None):
@@ -281,29 +311,38 @@ def _run_level(T0, ab0, residuals, intensity_residual, make_evaluator, J_const,
     (a median, so it needs every residual). Where the weight kind allows,
     that is `intensity_residual(T, ab) -> (r, valid)` (the affine residual
     at (T0, ab0) when affine, ab None otherwise) and the iterations run
-    fused (`make_evaluator(sigma0) -> LMEvaluator`); else everything runs
-    on `residuals(T, ab) -> (r, J or None, valid)`."""
+    fused (`make_evaluator(sigma0) -> LMEvaluator`; on a card each update
+    is one `lm_step` launch); else everything runs on `residuals(T, ab) ->
+    (r, J or None, valid)`. The level is counted in `LM_LEVELS` by the
+    path its updates take."""
     fused = weight_kind in FUSED_KINDS
+    on_kernel = fused and T0.device.type == "cuda"
+    LM_LEVELS["lm_kernel_levels" if on_kernel else "lm_plain_levels"] += 1
     if fused:
         ab = ab0 if affine else None
         sigma0 = mad_sigma(*intensity_residual(T0, ab))
-        steps = _fused_steps(make_evaluator(sigma0), T0, ab)
+        evaluator = make_evaluator(sigma0)
+        if on_kernel:
+            loop = _kernel_loop(evaluator, T0, ab0, max_iters, eps, init_lambda)
+        else:
+            loop = _lm_loop(T0, ab0, *_fused_steps(evaluator, T0, ab), max_iters, eps,
+                            init_lambda, affine)
     else:
         first = residuals(T0, ab0)
         sigma0 = mad_sigma(first[0], first[2])
-        steps = _plain_steps(residuals, first, sigma0, weight_kind, J_const)
-    best = _lm_loop(T0, ab0, *steps, max_iters, eps, init_lambda, affine)
-    common = dict(T=best.T, error=best.error, lam=best.lam, k=best.k, done=best.done,
-                  n_inlier=best.n_inlier, ab=best.ab)
+        loop = _lm_loop(T0, ab0, *_plain_steps(residuals, first, sigma0, weight_kind, J_const),
+                        max_iters, eps, init_lambda, affine)
+    common = dict(T=loop.T_best, error=loop.error, lam=loop.lam, k=loop.k, done=loop.done,
+                  n_inlier=loop.n_inlier, ab=loop.ab_best)
     if not fused:
-        r, valid = best.state[:2]
-        J = best.state[2] if len(best.state) == 3 else J_const
+        r, valid = loop.s_best[:2]
+        J = loop.s_best[2] if len(loop.s_best) == 3 else J_const
         return LMState(r_best=r, J=J, valid_best=valid, abs_r=torch.abs(r).sum(-1),
                        **common)
-    abs_r = best.state[0][:, lm_layout(affine).abs_r]
+    abs_r = loop.s_best[0][:, lm_layout(affine).abs_r]
     if not keep_residuals:
         return LMState(r_best=None, J=J_const, valid_best=None, abs_r=abs_r, **common)
-    r, J, valid = residuals(best.T, best.ab)
+    r, J, valid = residuals(loop.T_best, loop.ab_best)
     return LMState(r_best=r, J=J_const if J is None else J, valid_best=valid,
                    abs_r=abs_r, **common)
 

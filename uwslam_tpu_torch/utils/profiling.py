@@ -110,9 +110,10 @@ class Tracer:
         self.counts["step_frames"] += 1
 
     def line(self) -> str:
-        """One line for the operator: the counters, the mean device ms of
-        each megastep stage, and host ms per frame waiting (the event wait of
-        a retirement) and working (the rest of the outermost spans)."""
+        """One line for the operator: the counters, the LM levels of the
+        captured steps by path, the mean device ms of each megastep stage,
+        and host ms per frame waiting (the event wait of a retirement) and
+        working (the rest of the outermost spans)."""
         c = self.counts
         frames = max(c["dispatched"] + c["sync"], 1)
         wait = self.table.get("retire_wait", 0.0)
@@ -122,6 +123,9 @@ class Tracer:
             f"{c['keyframes']} keyframes, "
             f"{c['captures']} captures ({self.table.get('capture', 0.0):.2f} s)",
         ]
+        if c["captures"]:
+            parts.append(f"LM levels per replay of the captures: {c['lm_kernel_levels']} "
+                         f"on lm_step, {c['lm_plain_levels']} plain")
         if c["step_frames"]:
             parts.append("step ms " + " ".join(
                 f"{k} {v / c['step_frames']:.3f}" for k, v in self.step_ms.items()))
