@@ -7,9 +7,10 @@ For each seed, in one process: a run of the cell (set-up, a window of
 `--seconds`, the sample checked against the reference at float32 with TF32
 off), and with `--control` the control: the reference itself put in the
 program's place with TF32 on, on the same sampled frames. One JSON line
-per seed and side with the worst numbers over the sample (the lower
-reading is the largest the program gives over the seeds, the upper the
-smallest the control gives), printed and appended to `--out`.
+per seed and side with the reference's numbers over the sample and the
+largest of each per-frame number (`<name>_max`) (the lower reading is the
+largest the program gives over the seeds, the upper the smallest the
+control gives), printed and appended to `--out`.
 """
 import argparse
 import json
@@ -31,7 +32,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from slambench import check, spec
+    from slambench import spec
     from slambench.run import measure, reference_rows
 
     if not torch.cuda.is_available():
@@ -43,12 +44,11 @@ def main(argv=None) -> int:
         m = measure(cell, seed, args.seconds, False, device, time.perf_counter())
         sides = [("program", False)] + ([("control", True)] if args.control else [])
         for side, tf32 in sides:
-            rows = reference_rows(m, cell.config, device, tf32=tf32)
+            rows = reference_rows(m, cell, device, tf32=tf32)
             line = {"workload": args.workload, "seed": seed, "side": side,
                     "compared": len(rows), "sampled": m.sampled,
-                    "frames": len(m.window.handed), **check.summarize(rows),
-                    "track_gap_t_max": max((r["track_gap_t"] for r in rows), default=None),
-                    "track_gap_r_max": max((r["track_gap_r"] for r in rows), default=None)}
+                    "frames": len(m.window.handed), **cell.reference.summarize(rows),
+                    **{f"{k}_max": max(r[k] for r in rows) for k in (rows[0] if rows else ())}}
             print(json.dumps(line), flush=True)
             if args.out:
                 with open(args.out, "a") as f:

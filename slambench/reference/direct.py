@@ -26,13 +26,42 @@ The three layers of the live frame the output check covers:
 Bilinear reads are valid inside [0, W-1] x [0, H-1]; their top-left tap is
 clamped to (W-2, H-2) with weights from the unclamped floor. Warped points
 are valid in front of the camera (z > 1e-3) and inside the image.
+
+As the reference of the output check (the contract in `__init__.py`): a
+sampled frame's pyramid and points are kept as the program dispatched
+them, its pose is read from `system.trajectory`. One thing the reference
+takes from the program's state: the initial pose of the LM, which the live
+loop sets to the previous frame's motion (the constant-velocity model). The
+reference starts from that same motion, read off the trajectory, so that
+each comparison is of one frame's work; the motion it starts from is itself
+a Track answer of the previous frame, compared where that frame is sampled.
+
+The numbers, over the sampled frames:
+
+- `ingest_gap`: the largest absolute difference over every level's image,
+  gx, gy and |g| (gray levels). For 8-bit frames every product and sum of
+  the 2x2 means and the Scharr pass is exact in float32, whatever the
+  order, so this comparison is exact: its limit is 0.
+- `select_miss`: the largest share of the reference's valid points that
+  the program did not select (as a set of pixels); exact on exact
+  magnitudes, limit 0.
+- `track_gap_t_p90` / `track_gap_r_p90`: the 90th percentile over the
+  frames of the translation / rotation angle of T_program^-1 T_reference
+  for the frame's relative pose. Not the largest: at a few frames in a
+  window the LM is chaotic (a 1e-6 nudge of its initial pose moves the
+  reference's own result by up to 1e-3), and the largest gap reads that.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .lie import exp_se3, normalize_se3
+from ..stats import percentile
+from .lie import exp_se3, gap, inverse, normalize_se3
+from .settings import from_flags
+
+NUMBERS = ("ingest_gap", "select_miss", "track_gap_t_p90", "track_gap_r_p90")
 
 HUBER_K = 1.345
 MAD_SCALE = 1.4826
@@ -241,3 +270,87 @@ def track(ref_pyr, tgt_pyr, pts, cam, T_init, levels, iters):
     if bool(e_final > e_init * 1.05):
         return T_init, int(valid0.sum())
     return T, int(n)
+
+
+# ------------------------------------------------------------- the check
+
+def settings(config: dict):
+    """The configuration's flags as this reference implements them."""
+    return from_flags(config["flags"])
+
+
+def keep(rec: dict, prev: dict | None) -> tuple:
+    """A dispatched frame's pyramid and points, as the program made them."""
+    return rec["pyr"], rec["pts"]
+
+
+def motion(states: dict, i: int):
+    """Frame i's relative pose T_i <- i-1 from the trajectory, or None where
+    either frame is not a tracked ("ok") pose."""
+    a, b = states.get(i - 1), states.get(i)
+    if a is None or b is None or a.status != "ok" or b.status != "ok":
+        return None
+    Ta = torch.from_numpy(np.asarray(a.T_wc, np.float64))
+    Tb = torch.from_numpy(np.asarray(b.T_wc, np.float64))
+    return (inverse(Tb) @ Ta).to(torch.float32)
+
+
+def answer(frame_id: int, kept: tuple, states: dict) -> dict | None:
+    """A sampled frame's answers, with what the reference needs from the
+    program's state (the initial motion) beside them; None unless the frame
+    and the two before it are tracked."""
+    pyr, pts = kept
+    T_rel, T_init = motion(states, frame_id), motion(states, frame_id - 1)
+    if T_rel is None or T_init is None:
+        return None
+    return {
+        "frame": frame_id, "T_init": T_init, "T_rel": T_rel,
+        "pyr": {"images": [x[0] for x in pyr.images], "gx": [x[0] for x in pyr.grad_x],
+                "gy": [x[0] for x in pyr.grad_y], "gm": [x[0] for x in pyr.grad_mag]},
+        "uv": pts.uv[0], "valid": pts.valid[0],
+    }
+
+
+def reference(ring, answer: dict, config: dict, device) -> dict:
+    """The reference's answers for the answer's run frame i: its pyramid,
+    its points and its relative pose from frame i - 1, tracked from the
+    answer's T_init."""
+    i = answer["frame"]
+    s = settings(config)
+    cam = config["camera"]
+    prev = pyramid(ring.frame(i - 1).to(device), s.levels)
+    cur = pyramid(ring.frame(i).to(device), s.levels)
+    pts_prev = select(prev, cam, s.num_points, s.mono_depth)
+    pts_cur = select(cur, cam, s.num_points, s.mono_depth)
+    T, _ = track(prev, cur, pts_prev, cam, answer["T_init"].to(device), s.track_levels, s.iters)
+    return {"frame": i, "pyr": cur, "uv": pts_cur["uv"], "valid": pts_cur["valid"],
+            "T_rel": T}
+
+
+def _pixels(uv, valid) -> set:
+    return set(map(tuple, uv[valid].round().long().cpu().tolist()))
+
+
+def compare(answer: dict, ref: dict) -> dict:
+    """The numbers of one frame: `answer` (the program's, or the control's)
+    against the reference's."""
+    ingest = max(float((a.to(r.device) - r).abs().max())
+                 for f in ("images", "gx", "gy", "gm")
+                 for a, r in zip(answer["pyr"][f], ref["pyr"][f]))
+    want = _pixels(ref["uv"], ref["valid"])
+    got = _pixels(answer["uv"], answer["valid"])
+    t, r = gap(answer["T_rel"].cpu(), ref["T_rel"].cpu())
+    return {"ingest_gap": ingest, "select_miss": len(want - got) / max(len(want), 1),
+            "track_gap_t": t, "track_gap_r": r}
+
+
+def summarize(rows: list[dict]) -> dict:
+    """The compared numbers of a sample's per-frame rows (nan for none)."""
+    if not rows:
+        return dict.fromkeys(NUMBERS, float("nan"))
+    return {
+        "ingest_gap": max(r["ingest_gap"] for r in rows),
+        "select_miss": max(r["select_miss"] for r in rows),
+        "track_gap_t_p90": percentile([r["track_gap_t"] for r in rows], 90),
+        "track_gap_r_p90": percentile([r["track_gap_r"] for r in rows], 90),
+    }

@@ -10,7 +10,8 @@ its slow start, PERF.md section 2). The window then
 hands frames to `SlamSystem.process_frame_async` in a closed loop for
 `--seconds`. With `--trace 1` a profiled stretch of the configuration's
 `trace_frames` frames follows. Then the program's state is freed and the
-sampled frames are checked against the plain reference.
+sampled frames are checked against the plain reference that the
+configuration names.
 
 The last line of standard output is one JSON object: `correct`,
 `attempted` (frames handed over in the window), `failed` (of those, frames
@@ -110,7 +111,7 @@ def measure(cell, seed: int, seconds: float, traced: bool, device, t_start: floa
     ring = make_ring(mix, cam, seed, device)
     marks.append(("ring", time.perf_counter()))
     loop = Loop(system, Feeder(ring, device), cam["hz"])
-    sample = check.Sample(system, bench["check_frames"], seed)
+    sample = check.Sample(system, bench["check_frames"], seed, cell.reference.keep)
     loop.run_for(mix["warmup_seconds"])
     _sync(device)
     marks.append(("warm-up", time.perf_counter()))
@@ -132,7 +133,8 @@ def measure(cell, seed: int, seconds: float, traced: bool, device, t_start: floa
              "levels": tcfg.pyramid_levels, "num_points": tcfg.num_points,
              "fc": tcfg.track_mode == "fc", "affine": tcfg.affine_brightness}
     states = {s.frame_id: s for s in system.trajectory}
-    answers = check.program_frames(sample, states)
+    answers = [a for a in (cell.reference.answer(i, kept, states)
+                           for i, kept in sorted(sample.kept.items())) if a is not None]
     sampled = len(sample.kept)
     # The program's state goes before the reference runs; the sampled
     # answers stay to be judged.
@@ -144,21 +146,21 @@ def measure(cell, seed: int, seconds: float, traced: bool, device, t_start: floa
                     setup_parts, trace_s)
 
 
-def reference_rows(m: Measured, config: dict, device, tf32: bool = False,
-                   answers: list | None = None) -> list[dict]:
-    """Each sampled answer's numbers against the reference (float32, TF32
-    off). With `tf32` the reference is also run with TF32 on and put in the
-    program's place: the control."""
+def reference_rows(m: Measured, cell, device, tf32: bool = False) -> list[dict]:
+    """Each sampled answer's numbers against the cell's reference (float32,
+    TF32 off). With `tf32` the reference is also run with TF32 on and put in
+    the program's place: the control."""
     from slambench import check
 
+    ref_module, config = cell.reference, cell.config
     rows = []
     for a in m.answers:
         with check.precision(tf32=False):
-            ref = check.reference_frame(m.ring, a["frame"], a["T_init"], config, device)
+            ref = ref_module.reference(m.ring, a, config, device)
         if tf32:
             with check.precision(tf32=True):
-                a = check.reference_frame(m.ring, a["frame"], a["T_init"], config, device)
-        rows.append(check.compare(a, ref))
+                a = ref_module.reference(m.ring, a, config, device)
+        rows.append(ref_module.compare(a, ref))
     return rows
 
 
@@ -168,7 +170,8 @@ def report(cell, m: Measured, rows: list[dict], traced: bool, device) -> dict:
 
     from slambench import check, spec, trace
 
-    correct, table = check.judge(check.summarize(rows), len(rows), m.sampled, cell.limits)
+    correct, table = check.judge(cell.reference.summarize(rows), len(rows), m.sampled,
+                                 cell.limits)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     run = Run(setup_s=m.setup_s, window=m.window, trace=m.trace, shape=m.shape,
               device_kind=kind)
@@ -207,7 +210,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device,
     """One run of `cell` on `device` -> (its result object, notes for
     standard error), without the look for a card, which `main` makes."""
     m = measure(cell, seed, seconds, traced, device, t_start)
-    return report(cell, m, reference_rows(m, cell.config, device), traced, device), notes(m)
+    return report(cell, m, reference_rows(m, cell, device), traced, device), notes(m)
 
 
 def main(argv=None) -> int:

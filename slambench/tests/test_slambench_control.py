@@ -18,9 +18,10 @@ SEEDS = [2**31 + 301, 2**31 + 302, 2**31 + 303]
 def test_tf32_control_fails_where_the_program_passes(cell_name, seed, cuda_device):
     cell = spec.load_cell(cell_name)
     m = measure(cell, seed, 2.0, False, cuda_device, time.perf_counter())
-    program = reference_rows(m, cell.config, cuda_device)
-    control = reference_rows(m, cell.config, cuda_device, tf32=True)
-    ok, table = check.judge(check.summarize(program), len(program), m.sampled, cell.limits)
+    program = reference_rows(m, cell, cuda_device)
+    control = reference_rows(m, cell, cuda_device, tf32=True)
+    summarize = cell.reference.summarize
+    ok, table = check.judge(summarize(program), len(program), m.sampled, cell.limits)
     assert ok, table
-    ok, table = check.judge(check.summarize(control), len(control), m.sampled, cell.limits)
+    ok, table = check.judge(summarize(control), len(control), m.sampled, cell.limits)
     assert not ok, table

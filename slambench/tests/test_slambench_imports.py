@@ -13,8 +13,9 @@ from slambench import spec
 HARNESS = ["slambench.run", "slambench.calibrate", "slambench.check", "slambench.loop",
            "slambench.program", "slambench.spec", "slambench.stats", "slambench.trace",
            "slambench.roofline", "slambench.traffic.ring"]
-REFERENCE = ["slambench.reference.direct", "slambench.reference.lie",
-             "slambench.reference.settings"]
+# every module under reference/, found by its file, so a new reference is checked unlisted
+REFERENCE = sorted(f"slambench.reference.{p.stem}"
+                   for p in (spec.BENCH_DIR / "reference").glob("*.py") if p.name != "__init__.py")
 
 
 def _top_levels(modules):

@@ -103,24 +103,25 @@ def test_a_new_cell_needs_only_new_files(tmp_path):
     (tmp_path / "slambench/traffic/replay_stride3.json").write_text(
         json.dumps(dict(mix, stride=3)))
     conf = json.loads((spec.BENCH_DIR / "configs" / "tum_mono_direct.json").read_text())
-    (tmp_path / "slambench/configs/tum_mono_ic.json").write_text(
-        json.dumps(dict(conf, name="tum_mono_ic", flags=conf["flags"] + ["--track-mode", "ic"])))
-    (tmp_path / "slambench/reference/limits/tum_mono_ic.json").write_text(
+    (tmp_path / "slambench/configs/tum_mono_iters8.json").write_text(
+        json.dumps(dict(conf, name="tum_mono_iters8", flags=conf["flags"] + ["--gn-iters", "8"])))
+    (tmp_path / "slambench/reference/limits/tum_mono_iters8.json").write_text(
         (spec.BENCH_DIR / "reference/limits/tum_mono_direct.json").read_text())
     (tmp_path / "slambench/metrics/frames.count.py").write_text(
         "def read(run):\n    return float(run.window.retired_in_window)\n")
-    bench["configs"].append({"name": "tum_mono_ic", "source": conf["source"],
-                             "file": "slambench/configs/tum_mono_ic.json", "reduced": [],
-                             "why": "IC tracking"})
-    bench["workloads"].append({"name": "tum_mono_ic.replay_stride3", "config": "tum_mono_ic",
+    bench["configs"].append({"name": "tum_mono_iters8", "source": conf["source"],
+                             "file": "slambench/configs/tum_mono_iters8.json", "reduced": [],
+                             "why": "8 LM iterations per level"})
+    bench["workloads"].append({"name": "tum_mono_iters8.replay_stride3",
+                               "config": "tum_mono_iters8",
                                "traffic": "replay_stride3", "chips": 1, "why": "a new cell"})
     bench["per_layer"].append({"name": "frames.count", "unit": "frames", "better": "higher",
                                "source": "host_clock", "layer": "live loop", "moves": "live_fps",
-                               "workloads": ["tum_mono_ic.replay_stride3"]})
+                               "workloads": ["tum_mono_iters8.replay_stride3"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = spec.load_cell("tum_mono_ic.replay_stride3", root=tmp_path,
+    cell = spec.load_cell("tum_mono_iters8.replay_stride3", root=tmp_path,
                           bench_dir=tmp_path / "slambench")
-    assert cell.traffic["stride"] == 3 and "--track-mode" in cell.config["flags"]
+    assert cell.traffic["stride"] == 3 and cell.reference.settings(cell.config).iters == 8
     assert "frames.count" in [m["name"] for m in cell.per_layer]
     old = spec.load_cell("tum_mono_direct.replay", root=tmp_path, bench_dir=tmp_path / "slambench")
     assert "frames.count" not in [m["name"] for m in old.per_layer]
