@@ -28,15 +28,18 @@ vector per frame (42 floats). `process_frame_async` is the pipelined loop:
 the whole steady-state frame is one function (`_build_step_plain`, or
 `_build_step_boot` once the depth prior is installed), on a CUDA device
 captured once into a CUDA graph and replayed per frame; its
-26-float diagnostics (and, on a CUDA device, the device ms of each of its
-stages, stamped inside the graph) are read back four frames at a time
+26-float diagnostics (28 in the bootstrap megastep, which adds its match
+and F-RANSAC inlier counts; on a CUDA device then the device ms of each of
+its stages, stamped inside the graph) are read back four frames at a time
 through pinned memory, one call after they were staged, so a frame's state
 (and the keyframe it may become) lands 2 to 5 calls after its dispatch.
 Call `flush()` after the last frame.
 
 `self.tracer` (`utils.profiling.Tracer`) times the pipelined loop's parts as
 host spans into `retire_host_s` and counts its frames, keyframes and graph
-captures; the synchronous path's stages are its spans `sync_<stage>`.
+captures, and under the depth bootstrap its boot replays, prior installs and
+drops and the matches and inliers of the frames it retires as tracked;
+the synchronous path's stages are its spans `sync_<stage>`.
 """
 from __future__ import annotations
 
@@ -107,6 +110,9 @@ HOST_DRIFT_ATOL = 1e-6
 # finiteness, T_wc_new, log(T_ref^-1 T_wc_new)), then on a CUDA device the
 # device milliseconds of each stage, stamped inside the step.
 PIPE_DIAG = 26
+# The bootstrap megastep's row adds two floats after those 26, before the
+# stage times: the frame's mutual descriptor matches and their F-RANSAC inliers.
+BOOT_DIAG = PIPE_DIAG + 2
 PLAIN_STAGES = ("ingest", "track", "pose", "select")
 BOOT_STAGES = ("ingest", "features", "match", "track", "pose", "prior", "select")
 # A keyframe's retirement with window BA, by part (host seconds).
@@ -114,7 +120,7 @@ KEYFRAME_PARTS = ("make_keyframe", "match_dispatch", "match_wait", "add_keyframe
                   "build_problem")
 # Host spans of the pipelined loop (`Tracer`), in the seconds table from the start.
 LOOP_SPANS = ("frame", "flush", "dispatch", "replay", "capture", "retire_wait", "retire",
-              "keyframe", "relocalize", "stage_diags")
+              "keyframe", "relocalize", "stage_diags", "ransac_uniforms")
 
 
 @dataclass
@@ -275,7 +281,7 @@ class SlamSystem:
         self._boot_anchor = None    # (feats, T_wc, frames left): the first
         #                             frame, for wide-baseline triangulation
         #                             during the init window
-        self._last_matches = None   # (uv_a, uv_b, good, idx_a, idx_b) of the last pair
+        self._last_matches = None   # (uv_a, uv_b, good, idx_a, idx_b, mutual) of the last pair
         self._kp_depth = None       # triangulated depth per keypoint slot
         self._desc_proj = None      # descriptor projection on the device
         self._tracks = TrackGraph() # feature tracks across keyframes (BA)
@@ -410,19 +416,21 @@ class SlamSystem:
     def _ransac_uniforms(self, num_matches: int, seed: int) -> torch.Tensor:
         """The frame's (hypotheses, matches) table of uniforms behind the
         RANSAC samples, drawn on the host from a generator seeded with the
-        frame id and uploaded (through pinned memory on a CUDA device)."""
-        gen = torch.Generator().manual_seed(seed)
-        u = draw_uniforms(num_matches, self.config.features.ransac_hypotheses, gen)
-        if self.device.type == "cuda":
-            return u.pin_memory().to(self.device, non_blocking=True)
-        return u
+        frame id and uploaded (through pinned memory on a CUDA device).
+        Span `ransac_uniforms`: the draw and the start of the upload."""
+        with self.tracer.span("ransac_uniforms"):
+            gen = torch.Generator().manual_seed(seed)
+            u = draw_uniforms(num_matches, self.config.features.ransac_hypotheses, gen)
+            if self.device.type == "cuda":
+                return u.pin_memory().to(self.device, non_blocking=True)
+            return u
 
     def _match_features(self, kp_a_uv, desc_a, valid_a, kp_b_uv, desc_b, valid_b, uniforms,
                         ratio: float | None = None):
         """Ratio-tested mutual matches of two keypoint sets (the configured
         ratio unless `ratio` is given), verified by F-RANSAC -> (uv_a, uv_b,
-        good, idx_a, idx_b), all of capacity K_a. Nothing is read on the
-        host."""
+        good, idx_a, idx_b, mutual), all of capacity K_a; `mutual` is the
+        matches before F-RANSAC. Nothing is read on the host."""
         fcfg = self.config.features
         m = match_descriptors(desc_a, desc_b, valid_a, valid_b,
                               ratio=fcfg.ratio if ratio is None else ratio)
@@ -430,7 +438,7 @@ class SlamSystem:
         res = fundamental_ransac(uv_a, uv_b, m.valid, uniforms,
                                  threshold=fcfg.ransac_threshold_px,
                                  min_inliers=fcfg.min_matches)
-        return uv_a, uv_b, m.valid & res.inliers, m.idx_a, m.idx_b
+        return uv_a, uv_b, m.valid & res.inliers, m.idx_a, m.idx_b, m.valid
 
     def _match_only(self, prev, cur):
         """Previous -> current matches without patch points: under the depth
@@ -449,7 +457,7 @@ class SlamSystem:
         -> (TrackPoints, number of matches on the device)."""
         fcfg = self.config.features
         matches = self._match_only(prev, cur)
-        uv_a, _, good, idx_a, _ = matches
+        uv_a, _, good, idx_a, _, _ = matches
         self._last_matches = matches
         pts = patch_points(
             self._prev[0].images[0], uv_a[None], good[None], self.cam,
@@ -574,7 +582,7 @@ class SlamSystem:
 
         self._kp_depth = None
         if self._last_matches is not None:
-            uv_a, uv_b, good, _, idx_b = self._last_matches
+            uv_a, uv_b, good, _, idx_b, _ = self._last_matches
             tri = triangulate_matches(self.cam, T_rel, uv_a, uv_b, good)
             n_tri = tri.good.sum()
             g, s_tri = anchored(prior_from_points(uv_b, tri.depth_b, tri.good, H, W, block=blk))
@@ -614,15 +622,24 @@ class SlamSystem:
         fused = fill_prior(fused)
         # Before the bootstrap: install only once a source has fired (one
         # scalar read, paid until the prior exists).
-        if self._depth_prior is None and float(wsum.sum()) <= 0.0:
-            return
+        if self._depth_prior is None:
+            if float(wsum.sum()) <= 0.0:
+                return
+            self.tracer.count("boot_inits")
         self._depth_prior = fused
+
+    def _drop_prior(self) -> None:
+        """Forget the depth prior and what goes with it after a loss (counter
+        `boot_resets`: a prior that was there dropped)."""
+        if self._depth_prior is not None:
+            self.tracer.count("boot_resets")
+        self._depth_prior = self._kp_depth = self._boot_anchor = None
 
     def _prior_core(self, T_rel, ab, prev_pts, cur_pyr, matches):
         """The steady-state refresh (`_fused_prior_update`) -> (prior, depths
         per keypoint)."""
         fcfg = self.config.features
-        uv_a, uv_b, good, _, idx_b = matches
+        uv_a, uv_b, good, _, idx_b, _ = matches
         return _fused_prior_update(
             self._depth_prior, T_rel, ab, prev_pts,
             cur_pyr.images[0], cur_pyr.grad_x[0], cur_pyr.grad_y[0],
@@ -833,6 +850,7 @@ class SlamSystem:
             boot = self._bootstrap_init(self._last_matches)
             if boot is not None:
                 T_init, self._depth_prior = boot
+                self.tracer.count("boot_inits")
                 prev_pts = self._apply_prior(prev_pts)
         with self.timers.stage("track"):
             T_rel, T_wc_new, diag = self._track_and_diag(
@@ -850,7 +868,7 @@ class SlamSystem:
         status = "ok"
         if self._is_lost(inliers, capacity, track_error, pose_finite, T_wc_np):
             # A pose jump breaks the prior's association with its frame.
-            self._depth_prior = self._kp_depth = self._boot_anchor = None
+            self._drop_prior()
             with self.timers.stage("reloc"):
                 reloc = self._relocalize(pyr, cur_feats)
             if reloc is not None:
@@ -991,10 +1009,10 @@ class SlamSystem:
         return np.asarray([t[0], t[1], t[2], float(np.arccos(c)), 0.0, 0.0], np.float32)
 
     @staticmethod
-    def _pose_and_diag(out, prev_pts, T_wc, T_ref, corr, clock: StageClock):
+    def _pose_and_diag(out, prev_pts, T_wc, T_ref, corr, clock: StageClock, extra=()):
         """The speculative pose chain and the diagnostics row (PIPE_DIAG
-        floats, then room for the stage times that `clock`'s last stamp
-        writes) of a megastep -> (T_rel, T_wc_new, diag)."""
+        floats, the floats of `extra`, then room for the stage times that
+        `clock`'s last stamp writes) of a megastep -> (T_rel, T_wc_new, diag)."""
         T_rel = out.T[0]
         T_wc_in = se3.compose(corr, T_wc)
         T_wc_new = se3.normalize(se3.compose(T_wc_in, se3.inverse(T_rel)))
@@ -1006,6 +1024,7 @@ class SlamSystem:
             ]),
             T_wc_new.reshape(-1),
             se3.log(se3.compose(se3.inverse(T_ref), T_wc_new)),
+            *((torch.stack([x.float() for x in extra]),) if extra else ()),
             *(() if tail is None else (tail,)),
         ])
         return T_rel, T_wc_new, diag
@@ -1054,8 +1073,10 @@ class SlamSystem:
         boundary (BOOT_STAGES) on a CUDA device. `step(img, prev_pyr,
         prev_pts, prev_kp_uv, prev_desc, prev_kp_valid, prior, T_init, T_wc,
         T_ref, corr, uniforms) -> (pyr, kps, desc, T_rel, T_wc_new, prior_new,
-        kp_depth, pts, diag)`. The RANSAC samples come from `uniforms`,
-        drawn on the host per frame; nothing in the step reads the device."""
+        kp_depth, pts, diag)`, the row BOOT_DIAG floats (the plain step's,
+        then the mutual matches and their F-RANSAC inliers) before the stage
+        times. The RANSAC samples come from `uniforms`, drawn on the host per
+        frame; nothing in the step reads the device."""
         cam = self.cam
         tcfg = self.config.tracker
         fcfg = self.config.features
@@ -1069,7 +1090,7 @@ class SlamSystem:
             clock.mark()
             kps, desc = self._detect_features(pyr)
             clock.mark()
-            uv_a, uv_b, good, _, idx_b = self._match_features(
+            uv_a, uv_b, good, _, idx_b, mutual = self._match_features(
                 prev_kp_uv, prev_desc, prev_kp_valid, kps.uv, desc, kps.valid, uniforms
             )
             clock.mark()
@@ -1080,7 +1101,8 @@ class SlamSystem:
                 affine=tcfg.affine_brightness,
             )
             clock.mark()
-            T_rel, T_wc_new, diag = self._pose_and_diag(out, prev_pts, T_wc, T_ref, corr, clock)
+            T_rel, T_wc_new, diag = self._pose_and_diag(
+                out, prev_pts, T_wc, T_ref, corr, clock, extra=(mutual.sum(), good.sum()))
             clock.mark()
             prior_new, kp_depth = _fused_prior_update(
                 prior, T_rel, None, prev_pts, pyr.images[0], pyr.grad_x[0], pyr.grad_y[0],
@@ -1092,7 +1114,7 @@ class SlamSystem:
                 mono_z=tcfg.mono_depth, block=tcfg.point_block,
             )
             pts = self._prior_depths(prior_new, pts)
-            clock.mark(diag[PIPE_DIAG:])
+            clock.mark(diag[BOOT_DIAG:])
             return pyr, kps, desc, T_rel, T_wc_new, prior_new, kp_depth, pts, diag
 
         return step
@@ -1235,7 +1257,7 @@ class SlamSystem:
             self._corr_pending = np.eye(4, dtype=np.float32)
             prev_pyr, prev_pts, _ = self._prev
             T_ref = self.keyframes.latest.T_wc
-            feats = kp_depth = prior_new = None
+            feats = kp_depth = prior_new = uniforms = None
             if not self.config.use_features:
                 pyr, pts, T_rel, T_wc_new, diag = self._run_step(
                     "plain", self._to_device(image), prev_pyr, prev_pts, self._velocity,
@@ -1243,14 +1265,15 @@ class SlamSystem:
                 )
             else:
                 kp_prev, desc_prev = self._prev_feats
+                uniforms = self._ransac_uniforms(desc_prev.shape[0], self._frame_id)
                 (pyr, kps, desc, T_rel, T_wc_new, prior_new, kp_depth, pts,
                  diag) = self._run_step(
                     "boot", self._to_device(image), prev_pyr, prev_pts,
                     kp_prev.uv, desc_prev, kp_prev.valid, self._depth_prior,
-                    self._velocity, self._T_wc, T_ref, corr,
-                    self._ransac_uniforms(desc_prev.shape[0], self._frame_id),
+                    self._velocity, self._T_wc, T_ref, corr, uniforms,
                 )
                 feats = (kps, desc)
+                self.tracer.count("boot_replays")
                 self._depth_prior = prior_new
                 self._kp_depth = kp_depth
             # Advance the device-side chain speculatively (status "ok").
@@ -1261,6 +1284,7 @@ class SlamSystem:
             rec = {
                 "frame_id": self._frame_id, "ts": ts, "diag": diag, "pyr": pyr, "pts": pts,
                 "feats": feats, "kp_depth": kp_depth, "prior": prior_new,
+                "T_rel": T_rel, "uniforms": uniforms,
                 "corr_at_dispatch": self._corr_accum.copy(),
                 "ref_kf_id": self.keyframes.latest.frame_id,
             }
@@ -1287,10 +1311,11 @@ class SlamSystem:
     def _step_ms(self, diag) -> dict[str, float] | None:
         """The stage times that a megastep's last stamp wrote after its
         diagnostics, by stage; None where the row has none (a CPU device)."""
-        if len(diag) <= PIPE_DIAG:
+        boot = self.config.use_features
+        width = BOOT_DIAG if boot else PIPE_DIAG
+        if len(diag) <= width:
             return None
-        stages = BOOT_STAGES if self.config.use_features else PLAIN_STAGES
-        return dict(zip(stages, diag[PIPE_DIAG:].tolist()))
+        return dict(zip(BOOT_STAGES if boot else PLAIN_STAGES, diag[width:].tolist()))
 
     def _retire_frame(self, rec, diag_row) -> FrameState:
         ref_kf = self.keyframes.latest
@@ -1325,7 +1350,7 @@ class SlamSystem:
             # Found late: the frames dispatched after this one ran on a
             # garbage chain. Drain them and resynchronize.
             self._pipe_broken = True
-            self._depth_prior = self._kp_depth = self._boot_anchor = None
+            self._drop_prior()
             status = "lost"
             with self.tracer.span("relocalize"):
                 reloc = self._relocalize(rec["pyr"], rec["feats"])
@@ -1349,6 +1374,9 @@ class SlamSystem:
                 step_ms=step_ms,
             )
 
+        if rec["feats"] is not None:
+            self.tracer.count("boot_matches", int(diag[PIPE_DIAG]))
+            self.tracer.count("boot_inliers", int(diag[PIPE_DIAG + 1]))
         # If a keyframe landed while this frame was in flight, the
         # diagnostics' motion relative to the keyframe is stale.
         if rec["ref_kf_id"] != ref_kf.frame_id:
@@ -1445,7 +1473,7 @@ class SlamSystem:
                               uniforms, ratio: float | None = None) -> torch.Tensor:
         """Two keyframes' verified matches as one (K_a, 7) table: idx_a,
         idx_b, uv_a, uv_b, good."""
-        uv_a, uv_b, good, idx_a, idx_b = self._match_features(
+        uv_a, uv_b, good, idx_a, idx_b, _ = self._match_features(
             kp_uv_a, desc_a, valid_a, kp_uv_b, desc_b, valid_b, uniforms, ratio)
         return torch.cat([idx_a[:, None].float(), idx_b[:, None].float(), uv_a, uv_b,
                           good[:, None].float()], dim=-1)

@@ -110,8 +110,10 @@ class Tracer:
         self.counts["step_frames"] += 1
 
     def line(self) -> str:
-        """One line for the operator: the counters, the LM levels of the
-        captured steps by path, the mean device ms of each megastep stage,
+        """One line for the operator: the counters, under the depth
+        bootstrap its own (replays, prior installs and drops, the retired
+        frames' matches and inliers), the LM levels of the captured steps by
+        path, the mean device ms of each megastep stage,
         and host ms per frame waiting (the event wait of a retirement) and
         working (the rest of the outermost spans)."""
         c = self.counts
@@ -123,6 +125,10 @@ class Tracer:
             f"{c['keyframes']} keyframes, "
             f"{c['captures']} captures ({self.table.get('capture', 0.0):.2f} s)",
         ]
+        if c["boot_replays"] or c["boot_inits"]:
+            parts.append(f"boot: {c['boot_replays']} replays, {c['boot_inits']} prior installs, "
+                         f"{c['boot_resets']} drops, {c['boot_matches']} matches, "
+                         f"{c['boot_inliers']} inliers")
         if c["captures"]:
             parts.append(f"LM levels per replay of the captures: {c['lm_kernel_levels']} "
                          f"on lm_step, {c['lm_plain_levels']} plain")
